@@ -1,0 +1,542 @@
+"""Drives the PyTorch/CUDA port (``mplan2vdl_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py [--sf 10] [--seed 1] [--out FILE] [--profile DIR]
+
+Phases (any failure ends the run with a nonzero exit; nothing is caught):
+  1. the card (``nvidia-smi`` name and power limit) and the torch, CUDA,
+     nvcc and driver versions;
+  2. builds the CUDA kernels from ``mplan2vdl_tpu_torch/engine/kernels/csrc``;
+  3. holds each kernel exactly equal to its plain PyTorch version on the
+     card, at the shapes of a TPC-H lineitem of the chosen scale, and times
+     kernel, plain version and library yardstick with CUDA events;
+  4. drives the slice end to end: TPC-H Q6, Q1 (fused by the automatic
+     gate, then with MPLAN2VDL_FUSED_AGG=0) and a lineitem
+     scan-filter-project, through ``plan_to_vexps`` + ``CompiledQuery`` on
+     ``cuda``, row-exact against the oracles, with the kernels' launch
+     counters read around the run.
+The line before the last is one JSON object with every kernel's numbers;
+the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
+the script exits nonzero and prints no result.  The plan texts below are
+the single copy the tests import.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+PLAN_Q6 = """project (
+| group by (
+| | select (
+| | | table(sys.lineitem) [ lineitem.l_quantity NOT NULL, lineitem.l_extendedprice NOT NULL,
+| | |   lineitem.l_discount NOT NULL, lineitem.l_shipdate NOT NULL ] COUNT
+| | ) [ lineitem.l_shipdate NOT NULL >= date "1994-01-01", lineitem.l_shipdate NOT NULL < date "1995-01-01",
+| |     lineitem.l_discount NOT NULL >= decimal(15,2) "5", lineitem.l_discount NOT NULL <= decimal(15,2) "7",
+| |     lineitem.l_quantity NOT NULL < decimal(15,2) "2400" ]
+| ) [  ] [ sys.sum no nil (sys.sql_mul(lineitem.l_extendedprice NOT NULL, lineitem.l_discount NOT NULL)) as L1.L1 ]
+) [ L1 as L2.revenue ]
+"""
+
+PLAN_Q1 = """project (
+| group by (
+| | select (
+| | | table(sys.lineitem) [ lineitem.l_quantity NOT NULL, lineitem.l_extendedprice NOT NULL,
+| | |   lineitem.l_discount NOT NULL, lineitem.l_tax NOT NULL, lineitem.l_returnflag NOT NULL,
+| | |   lineitem.l_linestatus NOT NULL, lineitem.l_shipdate NOT NULL ] COUNT
+| | ) [ lineitem.l_shipdate NOT NULL <= date "1998-09-02" ]
+| ) [ lineitem.l_returnflag, lineitem.l_linestatus ] [ lineitem.l_returnflag, lineitem.l_linestatus,
+|   sys.sum no nil (lineitem.l_quantity NOT NULL) as L1.L1,
+|   sys.sum no nil (lineitem.l_extendedprice NOT NULL) as L2.L2,
+|   sys.sum no nil (sys.sql_mul(lineitem.l_extendedprice NOT NULL, sys.sql_sub(decimal(15,2) "100", lineitem.l_discount NOT NULL))) as L3.L3,
+|   sys.sum no nil (sys.sql_mul(sys.sql_mul(lineitem.l_extendedprice NOT NULL, sys.sql_sub(decimal(15,2) "100", lineitem.l_discount NOT NULL)), sys.sql_add(decimal(15,2) "100", lineitem.l_tax NOT NULL))) as L4.L4,
+|   sys.avg no nil (lineitem.l_quantity NOT NULL) as L5.L5,
+|   sys.avg no nil (lineitem.l_extendedprice NOT NULL) as L6.L6,
+|   sys.avg no nil (lineitem.l_discount NOT NULL) as L7.L7,
+|   sys.count no nil (lineitem.l_quantity NOT NULL) as L8.L8 ]
+) [ lineitem.l_returnflag, lineitem.l_linestatus, L1 as L9.sum_qty, L2 as L9.sum_base_price, L3 as L9.sum_disc_price,
+    L4 as L9.sum_charge, L5 as L9.avg_qty, L6 as L9.avg_price, L7 as L9.avg_disc, L8 as L9.count_order ]
+"""
+
+# Q6's shipdate window, rows projected (~15.9% of lineitem)
+PLAN_FILTER_PROJECT = """project (
+| select (
+| | table(sys.lineitem) [ lineitem.l_orderkey NOT NULL, lineitem.l_quantity NOT NULL, lineitem.l_extendedprice NOT NULL,
+| |   lineitem.l_discount NOT NULL, lineitem.l_shipdate NOT NULL ] COUNT
+| ) [ lineitem.l_shipdate NOT NULL >= date "1994-01-01", lineitem.l_shipdate NOT NULL < date "1995-01-01" ]
+) [ lineitem.l_orderkey, lineitem.l_quantity, lineitem.l_extendedprice, lineitem.l_discount ]
+"""
+
+Q1_COLUMNS = ["l_returnflag", "l_linestatus", "sum_qty", "sum_base_price",
+              "sum_disc_price", "sum_charge", "avg_qty", "avg_price",
+              "avg_disc", "count_order"]
+FP_COLUMNS = ["l_orderkey", "l_quantity", "l_extendedprice", "l_discount"]
+
+# timed launches per kernel (after two warm-up launches)
+REPS = 20
+
+# NVIDIA H100 SXM data sheet: 3.35 TB/s of HBM3 at the 700 W power limit
+HBM_BYTES_PER_S = 3.35e12
+
+# the TPU kernels each CUDA kernel replaces (JAX package, file:line)
+KERNELS = {
+    "compact": dict(source="mplan2vdl_tpu_torch/engine/kernels/csrc/compact.cu",
+                    replaces="mplan2vdl_tpu/engine/kernels/compact.py:176"),
+    "gather": dict(source="mplan2vdl_tpu_torch/engine/kernels/csrc/gather.cu",
+                   replaces="mplan2vdl_tpu/engine/kernels/sorted_gather.py:297"
+                            " + mplan2vdl_tpu/engine/kernels/sorted_gather.py:507"),
+    "multiagg": dict(source="mplan2vdl_tpu_torch/engine/kernels/csrc/multiagg.cu",
+                     replaces="mplan2vdl_tpu/engine/kernels/multiagg.py:252"),
+}
+
+
+def _sh(cmd):
+    return subprocess.run(cmd, check=True, capture_output=True,
+                          text=True).stdout.strip()
+
+
+def _bound_ms(nbytes: float) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+class Smoke:
+    def __init__(self, args):
+        import torch
+
+        self.torch = torch
+        self.args = args
+        self.dev = torch.device("cuda")
+        self.records = {"kernel_checks": [], "kernel_times": [],
+                        "queries": []}
+
+    # ----------------------------------------------------------- utilities
+    def sync(self):
+        self.torch.cuda.synchronize()
+
+    def cuda_ms(self, fn, reps):
+        """Mean ms per call over ``reps`` calls, timed with CUDA events
+        after two warm-up calls."""
+        torch = self.torch
+        for _ in range(2):
+            fn()
+        self.sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def equal(self, what, got, want):
+        torch = self.torch
+        got = got if isinstance(got, (list, tuple)) else [got]
+        want = want if isinstance(want, (list, tuple)) else [want]
+        err = 0
+        for g, w in zip(got, want, strict=True):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise AssertionError(f"{what}: {g.dtype}{tuple(g.shape)} vs "
+                                     f"plain {w.dtype}{tuple(w.shape)}")
+            if g.numel():
+                err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
+                                   .abs().max()))
+        self.sync()
+        print(json.dumps({"check": what, "max_abs_err": err}), flush=True)
+        self.records["kernel_checks"].append({"check": what,
+                                              "max_abs_err": err})
+        if err != 0:
+            raise AssertionError(f"{what}: kernel differs from plain "
+                                 f"version (max abs err {err})")
+        return err
+
+    # -------------------------------------------------------------- phases
+    def card(self):
+        torch = self.torch
+        self.smi = _sh(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"]).splitlines()[0]
+        driver = _sh(["nvidia-smi", "--query-gpu=driver_version",
+                      "--format=csv,noheader"]).splitlines()[0]
+        from mplan2vdl_tpu_torch.engine.kernels import _lib
+
+        nvcc = _sh([_lib.nvcc(), "--version"]).splitlines()[-1]
+        print(self.smi, flush=True)
+        print(json.dumps({"torch": torch.__version__,
+                          "cuda": torch.version.cuda, "nvcc": nvcc,
+                          "driver": driver, "python": sys.version.split()[0],
+                          "device": torch.cuda.get_device_name(0),
+                          "count": torch.cuda.device_count()}), flush=True)
+
+    def build(self):
+        from mplan2vdl_tpu_torch.engine.kernels import _lib
+
+        secs = _lib.build()
+        _lib.lib()
+        for src, out in _lib.build_info["ptxas"].items():
+            for ln in out.splitlines():
+                if "Used" in ln or "spill" in ln:
+                    print(f"ptxas {src}: {ln.strip()}", flush=True)
+        print(json.dumps({"build_s": secs}), flush=True)
+
+    def store(self):
+        from mplan2vdl_tpu_torch.engine import datagen
+
+        t0 = time.perf_counter()
+        self.st = datagen.generate(sf=self.args.sf, seed=self.args.seed)
+        t1 = time.perf_counter()
+        self.cfg = self.st.make_catalog()
+        self.n = len(self.st.columns[("lineitem", "l_orderkey")])
+        print(json.dumps({"datagen_s": t1 - t0,
+                          "catalog_s": time.perf_counter() - t1,
+                          "sf": self.args.sf, "lineitem_rows": self.n}),
+              flush=True)
+
+    def col(self, name):
+        import numpy as np
+
+        return self.torch.from_numpy(np.require(
+            self.st.columns[("lineitem", name)],
+            requirements=["C", "W"])).to(self.dev)
+
+    def kernel_phase(self):
+        torch = self.torch
+        from mplan2vdl_tpu_torch.engine.kernels import compact, multiagg
+        from mplan2vdl_tpu_torch.engine.kernels import sorted_gather as sg
+        from mplan2vdl_tpu_torch.oracle.tpch import day
+
+        reps = REPS
+        ship, disc, qty = (self.col("l_shipdate"), self.col("l_discount"),
+                           self.col("l_quantity"))
+        n = ship.shape[0]
+        m159 = (ship >= day(1994, 1, 1)) & (ship < day(1995, 1, 1))
+        m19 = m159 & (disc >= 5) & (disc <= 7) & (qty < 2400)
+        # Q1's shipdate cut keeps every row of this generator's lineitem;
+        # hash the row index for a mask of Q1's TPC-H density instead
+        rows = torch.arange(n, device=self.dev)
+        m986 = (rows * 2654435761 % 1000) < 986
+        cnt = {k: int(m.sum()) for k, m in
+               (("1.9%", m19), ("15.9%", m159), ("98.6%", m986))}
+        print(json.dumps({"densities": {k: v / n for k, v in cnt.items()}}),
+              flush=True)
+        self.max_err = {"compact": 0, "gather": 0, "multiagg": 0}
+        self.timed = {}
+
+        # ---- compaction
+        def cmp_case(what, mask, n_out=None):
+            got = compact.compact_positions(mask, n_out)
+            want = compact.compact_positions_plain(mask, n_out)
+            e = self.equal(f"compact {what}", got, want)
+            self.max_err["compact"] = max(self.max_err["compact"], e)
+
+        for k, m in (("1.9%", m19), ("15.9%", m159), ("98.6%", m986)):
+            cmp_case(f"density {k} n_out=count", m, max(cnt[k], 1))
+            cmp_case(f"density {k} n_out=n", m)
+        cmp_case("all-false", torch.zeros(n, dtype=torch.bool,
+                                          device=self.dev))
+        cmp_case("all-true", torch.ones(n, dtype=torch.bool, device=self.dev))
+        odd = 4096 * max(n // 8192, 1) + 77
+        cmp_case(f"n={odd} (not a block multiple)", m159[:odd])
+        cmp_case("n_out trimmed to half the count", m159, cnt["15.9%"] // 2)
+        cmp_case("unaligned view", m159[3:])
+        cmp_case("n=1", m159[:1])
+
+        c159 = cnt["15.9%"]
+        compact.launches = 0
+        ms = self.cuda_ms(lambda: compact.compact_positions(m159, c159), reps)
+        timed_launches = compact.launches
+        plain_ms = self.cuda_ms(
+            lambda: compact.compact_positions_plain(m159, c159), 3)
+        lib_ms = self.cuda_ms(lambda: torch.nonzero(m159), reps)
+        self.kernel_time("compact", f"mask bool[{n}] 15.9% -> int32[{c159}]",
+                         ms, plain_ms, lib_ms, _bound_ms(n + 4 * c159),
+                         timed_launches)
+
+        # ---- gather
+        pos = compact.compact_positions(m159, c159)
+        names = ["l_orderkey", "l_quantity", "l_extendedprice", "l_discount"]
+        srcs = [self.col(c) for c in names]
+        wide = (srcs[2].to(torch.int64) << 33) - srcs[0].to(torch.int64)
+
+        def g_case(what, ss, p, valid):
+            got = sg.gather_many(ss, p, valid)
+            want = sg.gather_many_plain(ss, p, valid)
+            # rows past valid are unspecified to callers but equal here
+            e = self.equal(f"gather {what}", got, want)
+            self.max_err["gather"] = max(self.max_err["gather"], e)
+
+        g_case("k=4 int32", srcs, pos, c159)
+        g_case("k=1 int32", srcs[:1], pos, c159)
+        g_case("k=1 int64", [wide], pos, c159)
+        g_case("k=4 mixed int32/int64", [srcs[0], wide, srcs[2], wide], pos,
+               c159)
+        g_case("k=9 (two launches)", srcs * 2 + [wide], pos, c159)
+        tail = pos.clone()
+        tail[c159 // 2:] = 0
+        g_case("masked tail, host valid", srcs, tail, c159 // 2)
+        g_case("masked tail, device valid", srcs, tail,
+               torch.tensor(c159 // 2, device=self.dev))
+        dup = torch.repeat_interleave(pos[: c159 // 2], 2)
+        g_case("duplicate positions", srcs, dup, dup.shape[0])
+        g_case("int64 positions", srcs, pos.to(torch.int64), c159)
+
+        sg.launches = 0
+        ms = self.cuda_ms(lambda: sg.gather_many(srcs, pos, c159), reps)
+        timed_launches = sg.launches
+        plain_ms = self.cuda_ms(
+            lambda: sg.gather_many_plain(srcs, pos, c159), reps)
+        posl = pos.long()
+        lib_ms = self.cuda_ms(
+            lambda: [torch.index_select(s, 0, posl) for s in srcs], reps)
+        nbytes = 4 * c159 + sum(2 * s.element_size() * c159 for s in srcs)
+        self.kernel_time("gather", f"k=4 int32[{n}] at int32[{c159}] "
+                         "ascending positions", ms, plain_ms, lib_ms,
+                         _bound_ms(nbytes), timed_launches)
+
+        # ---- fused aggregate
+        from mplan2vdl_tpu_torch.engine.lower import CompiledQuery, \
+            plan_to_vexps
+
+        os.environ["MPLAN2VDL_FUSED_AGG"] = "1"
+        try:
+            fam = CompiledQuery(self.cfg, plan_to_vexps(PLAN_Q1, self.cfg),
+                                self.st, device="cuda").families[0]
+        finally:
+            os.environ.pop("MPLAN2VDL_FUSED_AGG")
+        specs = list(fam.specs) + [multiagg.AggSpec(base=None, bits=1)]
+        cols = [self.col(nm[1]).to(torch.int32) for nm in fam.load_names]
+        rf, ls = self.col("l_returnflag"), self.col("l_linestatus")
+        gid = torch.where(ship <= day(1998, 9, 2), rf * 2 + ls,
+                          -1).to(torch.int32)
+
+        def a_case(what, cs, g, sp, groups):
+            got = multiagg.fused_group_aggregate(cs, g, sp, groups)
+            want = multiagg.reference_group_aggregate(cs, g, sp, groups)
+            e = self.equal(f"multiagg {what}", got, want)
+            self.max_err["multiagg"] = max(self.max_err["multiagg"], e)
+
+        a_case(f"Q1 specs n={n}", cols, gid, specs, fam.domain)
+        gneg = gid.clone()
+        gneg[::7] = -5
+        a_case("negative gid rows", cols, gneg, specs, fam.domain)
+        odd = min(1_000_003, n)
+        a_case(f"n={odd} (not a block multiple)", [c[:odd] for c in cols],
+               gid[:odd], specs, fam.domain)
+        nb = 150_001
+        big = torch.full((nb,), 2**31 - 1, dtype=torch.int32, device=self.dev)
+        zero = torch.zeros(nb, dtype=torch.int32, device=self.dev)
+        near = [multiagg.AggSpec(base=0, factors=((100, -1, 1), (100, 1, 1)),
+                                 bits=45),
+                multiagg.AggSpec(base=0, bits=31, op="max"),
+                multiagg.AggSpec(base=None, bits=1)]
+        a_case("values near the bits bound", [big, zero],
+               torch.zeros(nb, dtype=torch.int32, device=self.dev), near, 1)
+
+        multiagg.launches = 0
+        ms = self.cuda_ms(lambda: multiagg.fused_group_aggregate(
+            cols, gid, specs, fam.domain), reps)
+        timed_launches = multiagg.launches
+        plain_ms = self.cuda_ms(lambda: multiagg.reference_group_aggregate(
+            cols, gid, specs, fam.domain), 2)
+        self.kernel_time("multiagg", f"{len(specs)} Q1 specs x "
+                         f"{fam.domain} groups over {len(cols)} int32[{n}] "
+                         "columns + int32 gid", ms, plain_ms, None,
+                         _bound_ms(4 * (len(cols) + 1) * n), timed_launches)
+
+    def kernel_time(self, name, shape, ms, plain_ms, lib_ms, bound_ms,
+                    launches):
+        rec = {"kernel": name, "shape": shape, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": bound_ms, "launches": launches,
+               "card": self.smi}
+        self.timed[name] = rec
+        self.records["kernel_times"].append(rec)
+        print(json.dumps(rec), flush=True)
+
+    def query_phase(self):
+        import numpy as np
+
+        from mplan2vdl_tpu_torch.engine.kernels import compact, multiagg
+        from mplan2vdl_tpu_torch.engine.kernels import sorted_gather as sg
+        from mplan2vdl_tpu_torch.engine.lower import CompiledQuery, \
+            fused_agg_on, plan_to_vexps
+        from mplan2vdl_tpu_torch.oracle import tpch
+
+        counters = {"compact": compact, "gather": sg, "multiagg": multiagg}
+        st, cfg = self.st, self.cfg
+        want_q6 = tpch.q6(st)
+        want_q1 = tpch.q1(st)
+        ship = st.columns[("lineitem", "l_shipdate")]
+        fp_mask = (ship >= tpch.day(1994, 1, 1)) & (ship < tpch.day(1995, 1, 1))
+        want_fp = [st.columns[("lineitem", c)][fp_mask] for c in FP_COLUMNS]
+
+        def check_q6(res):
+            got = [int(c[0]) for c in res.columns]
+            assert got == [int(want_q6["revenue"][0])], (got, want_q6)
+
+        def check_q1(res):
+            got = sorted(zip(*[c.astype(np.int64).tolist()
+                               for c in res.columns]))
+            want = sorted(zip(*[np.asarray(want_q1[k], np.int64).tolist()
+                                for k in Q1_COLUMNS]))
+            assert [nm[-1] for nm in res.names] == Q1_COLUMNS, res.names
+            assert got == want, (got, want)
+
+        def check_fp(res):
+            assert [nm[-1] for nm in res.names] == FP_COLUMNS, res.names
+            for g, w in zip(res.columns, want_fp, strict=True):
+                assert np.array_equal(g, w), "filter-project rows differ"
+
+        q1_auto = "Q1 fused (auto gate)" if fused_agg_on(
+            st, [("lineitem", "l_quantity")]) else "Q1 (auto gate: unfused)"
+        runs = [("Q6", PLAN_Q6, None, check_q6),
+                (q1_auto, PLAN_Q1, None, check_q1)]
+        if not q1_auto.startswith("Q1 fused"):
+            runs.append(("Q1 fused (forced)", PLAN_Q1, "1", check_q1))
+        runs += [("Q1 unfused (MPLAN2VDL_FUSED_AGG=0)", PLAN_Q1, "0",
+                  check_q1),
+                 ("filter-project", PLAN_FILTER_PROJECT, None, check_fp)]
+        total = {k: 0 for k in counters}
+        for name, plan, fused, check in runs:
+            if fused is None:
+                os.environ.pop("MPLAN2VDL_FUSED_AGG", None)
+            else:
+                os.environ["MPLAN2VDL_FUSED_AGG"] = fused
+            cq = CompiledQuery(cfg, plan_to_vexps(plan, cfg), st,
+                               device="cuda")
+            os.environ.pop("MPLAN2VDL_FUSED_AGG", None)
+            t0 = time.perf_counter()
+            cq.device_args()
+            self.sync()
+            load_ms = (time.perf_counter() - t0) * 1e3
+            for mod in counters.values():
+                mod.launches = 0
+            res = cq()
+            launches = {k: mod.launches for k, mod in counters.items()}
+            for k in total:
+                total[k] += launches[k]
+            check(res)
+            self.torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                cq.run()
+                self.sync()
+                times.append((time.perf_counter() - t0) * 1e3)
+            med = statistics.median(times)
+            # least time: each loaded column read once, each result written
+            nbytes = (sum(a.numel() * a.element_size()
+                          for a in cq.device_args())
+                      + sum(c.nbytes for c in res.columns))
+            rec = {"query": name, "sf": self.args.sf, "rows_in": self.n,
+                   "rows_out": len(res.columns[0]), "median_ms": med,
+                   "ms": times, "rows_per_s": self.n / (med / 1e3),
+                   "bound_ms": _bound_ms(nbytes), "load_ms": load_ms,
+                   "peak_gb": self.torch.cuda.max_memory_allocated() / 1e9,
+                   "launches": launches, "card": self.smi}
+            if self.args.profile:
+                rec["profile"] = self.profile(name, cq)
+            self.records["queries"].append(rec)
+            print(json.dumps(rec), flush=True)
+            del cq
+        self.launches = total
+        for k, v in total.items():
+            if v == 0:
+                raise AssertionError(f"kernel {k} was not launched by the "
+                                     "queries")
+        print(json.dumps({"main_path_launches": total}), flush=True)
+
+    def profile(self, name, cq):
+        """One warm call under torch.profiler: device (kernel) time beside
+        the host wall time, and the ops that own the most device time."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        act = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=act) as prof:
+            t0 = time.perf_counter()
+            cq.run()
+            self.sync()
+            wall = (time.perf_counter() - t0) * 1e3
+        avg = prof.key_averages()
+
+        def dev_us(e):
+            return getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0))
+
+        # kernels are the CUDA-type entries; the CPU-side ops that launched
+        # them carry the same device time, so they name the top spenders
+        device = sum(dev_us(e) for e in avg
+                     if e.device_type == DeviceType.CUDA) / 1e3
+        ops = [e for e in avg if e.device_type == DeviceType.CPU]
+        top = sorted(ops, key=dev_us, reverse=True)[:8]
+        os.makedirs(self.args.profile, exist_ok=True)
+        stem = "".join(c if c.isalnum() else "_" for c in name)
+        with open(os.path.join(self.args.profile, stem + ".txt"), "w") as f:
+            f.write(avg.table(sort_by="self_device_time_total", row_limit=40,
+                              max_name_column_width=100))
+        return {"wall_ms": wall, "device_ms": device,
+                "busy_share": device / wall,
+                "top": [[e.key, e.count, dev_us(e) / 1e3] for e in top]}
+
+    def summary(self):
+        out = []
+        for name, meta in KERNELS.items():
+            t = self.timed[name]
+            out.append({"name": name, "route": "cuda",
+                        "source": meta["source"],
+                        "replaces": meta["replaces"],
+                        "launches": self.launches[name],
+                        "max_abs_err": self.max_err[name],
+                        "ms": t["ms"], "plain_ms": t["plain_ms"],
+                        "bound_ms": t["bound_ms"], "bound_by": "bytes",
+                        "library_ms": t["library_ms"]})
+        return {"kernels": out}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sf", type=float, default=10.0,
+                    help="TPC-H scale factor of the generated store")
+    ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--out", default=None,
+                    help="also write every record as JSON to this file")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="profile one warm call of each query with "
+                         "torch.profiler; tables go to DIR")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    import mplan2vdl_tpu_torch  # noqa: F401  (fails outside the repo)
+
+    t0 = time.perf_counter()
+    s = Smoke(args)
+    s.card()
+    s.build()
+    s.store()
+    s.kernel_phase()
+    s.query_phase()
+    summary = s.summary()
+    s.records["summary"] = summary
+    s.records["wall_s"] = time.perf_counter() - t0
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(s.records, f, indent=1)
+    print(json.dumps({"wall_s": s.records["wall_s"]}), flush=True)
+    print(json.dumps(summary), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

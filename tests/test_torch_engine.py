@@ -1,0 +1,135 @@
+"""The port's engine against the JAX engine and the oracles, on the CPU.
+
+The three plans of the port's first slice (TPC-H Q6, Q1 and a lineitem
+scan-filter-project, defined once in chip_smoke.py) run through the port
+(``device="cpu"``), through the JAX ``CompiledQuery`` on the CPU and
+through the oracles, at two seeds; Q1 runs with the fused multi-aggregate
+path forced on and off on both engines.  Every comparison is exact: the
+engine is integer throughout.
+"""
+
+import numpy as np
+import pytest
+
+import chip_smoke
+from mplan2vdl_tpu.engine import datagen as jdatagen
+from mplan2vdl_tpu.engine import lower as jlower
+from mplan2vdl_tpu_torch.engine import datagen as tdatagen
+from mplan2vdl_tpu_torch.engine import lower as tlower
+from mplan2vdl_tpu_torch.oracle import tpch
+
+SF = 0.01
+SEEDS = (7, 11)
+PLANS = {"q6": chip_smoke.PLAN_Q6, "q1": chip_smoke.PLAN_Q1,
+         "filter_project": chip_smoke.PLAN_FILTER_PROJECT}
+RUNS = [("q6", None), ("q1", "1"), ("q1", "0"), ("filter_project", None)]
+
+
+@pytest.fixture(scope="module")
+def stores():
+    """seed -> (port store, its catalog, JAX store, its catalog)."""
+    out = {}
+    for seed in SEEDS:
+        ts = tdatagen.generate(sf=SF, seed=seed)
+        js = jdatagen.generate(sf=SF, seed=seed)
+        out[seed] = (ts, ts.make_catalog(), js, js.make_catalog())
+    return out
+
+
+def _oracle(store, plan):
+    if plan == "q6":
+        return [tpch.q6(store)["revenue"]]
+    if plan == "q1":
+        want = tpch.q1(store)
+        return [want[k] for k in chip_smoke.Q1_COLUMNS]
+    ship = store.columns[("lineitem", "l_shipdate")]
+    m = (ship >= tpch.day(1994, 1, 1)) & (ship < tpch.day(1995, 1, 1))
+    return [store.columns[("lineitem", c)][m]
+            for c in chip_smoke.FP_COLUMNS]
+
+
+def _rows(cols):
+    return sorted(zip(*[np.asarray(c, np.int64).tolist() for c in cols]))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("plan,fused", RUNS,
+                         ids=[f"{p}-fused{f}" if f else p for p, f in RUNS])
+def test_slice_matches_jax_and_oracle(stores, monkeypatch, seed, plan,
+                                      fused):
+    if fused is not None:
+        monkeypatch.setenv("MPLAN2VDL_FUSED_AGG", fused)
+    ts, tcfg, js, jcfg = stores[seed]
+    text = PLANS[plan]
+    tq = tlower.CompiledQuery(tcfg, tlower.plan_to_vexps(text, tcfg), ts,
+                              device="cpu")
+    jq = jlower.CompiledQuery(jcfg, jlower.plan_to_vexps(text, jcfg), js)
+    if fused == "1":
+        assert len(tq.families) == 1 and len(jq.families) == 1
+        assert tq.families[0].specs == [
+            tlower.AggSpec(**vars(s)) for s in jq.families[0].specs]
+    got, want = tq(), jq()
+    assert got.names == want.names
+    assert len(got.columns) == len(want.columns)
+    for g, w in zip(got.columns, want.columns):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)  # row for row, in order
+    assert _rows(got.columns) == _rows(_oracle(ts, plan))
+
+
+def test_fused_gate_default_threshold(stores, monkeypatch):
+    """Unset, the gate fuses only at FUSED_AUTO_ROWS (the JAX engine's
+    24M-row default); the environment forces it either way."""
+    monkeypatch.delenv("MPLAN2VDL_FUSED_AGG", raising=False)
+    ts, tcfg, _, _ = stores[SEEDS[0]]
+    vexps = tlower.plan_to_vexps(chip_smoke.PLAN_Q1, tcfg)
+    assert tlower.FUSED_AUTO_ROWS == 24_000_000
+    assert not tlower.CompiledQuery(tcfg, vexps, ts, device="cpu").families
+    monkeypatch.setattr(tlower, "FUSED_AUTO_ROWS", 1000)
+    assert tlower.CompiledQuery(tcfg, vexps, ts, device="cpu").families
+    monkeypatch.setenv("MPLAN2VDL_FUSED_AGG", "0")
+    assert not tlower.CompiledQuery(tcfg, vexps, ts, device="cpu").families
+
+
+def test_decoded_matches_jax(stores):
+    ts, tcfg, js, jcfg = stores[SEEDS[0]]
+    got = tlower.compile_plan_text(chip_smoke.PLAN_Q1, tcfg, ts,
+                                   device="cpu")().decoded(ts)
+    want = jlower.CompiledQuery(
+        jcfg, jlower.plan_to_vexps(chip_smoke.PLAN_Q1, jcfg), js)().decoded(js)
+    assert [g[0] for g in got] == [w[0] for w in want]
+    for (_, g), (_, w) in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_outside_slice_raises(stores):
+    """A plan beyond the slice fails loudly: a LIKE predicate."""
+    ts, tcfg, _, _ = stores[SEEDS[0]]
+    text = chip_smoke.PLAN_FILTER_PROJECT.replace(
+        'lineitem.l_shipdate NOT NULL < date "1995-01-01" ]',
+        'lineitem.l_shipdate NOT NULL < date "1995-01-01",'
+        ' lineitem.l_comment NOT NULL FILTER like'
+        ' (varchar[char(10) "%deposits%"], varchar "") ]'
+    ).replace("lineitem.l_shipdate NOT NULL ] COUNT",
+              "lineitem.l_shipdate NOT NULL, lineitem.l_comment NOT NULL"
+              " ] COUNT")
+    cq = tlower.compile_plan_text(text, tcfg, ts, device="cpu")
+    with pytest.raises(NotImplementedError, match="Like"):
+        cq()
+
+
+@pytest.mark.parametrize("plan,decode", [("q1", True),
+                                         ("filter_project", False)])
+def test_cli_run_matches_jax(tmp_path, capsys, plan, decode):
+    from mplan2vdl_tpu import cli as jcli
+    from mplan2vdl_tpu_torch import cli as tcli
+
+    path = tmp_path / "plan.mplan"
+    path.write_text(PLANS[plan])
+    args = ["run", str(path), "--sf", "0.005", "--seed", "3", "--cpu"]
+    args += ["--decode"] if decode else []
+    tcli.main(args)
+    got = capsys.readouterr().out
+    jcli.main(args)
+    want = capsys.readouterr().out
+    assert got == want and got.count("\n") > 1

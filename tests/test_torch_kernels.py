@@ -1,0 +1,252 @@
+"""The port's kernel modules against the JAX package's, on the CPU.
+
+Each plain version (what a kernel wrapper runs for a CPU tensor) gets the
+same numpy inputs as the JAX function, made from a seed, and must agree
+exactly (tolerance 0: every value is an integer).  The case lists are those
+of tests/test_compact.py, tests/test_sorted_gather.py and
+tests/test_multiagg.py.  The JAX side runs as its own tests run it: the
+Pallas kernels in interpret mode.  The CUDA kernels themselves run only on
+the GPU, where chip_smoke.py holds them against these plain versions.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from mplan2vdl_tpu.engine.kernels import compact as jcompact
+from mplan2vdl_tpu.engine.kernels import multiagg as jmultiagg
+from mplan2vdl_tpu.engine.kernels import segred as jsegred
+from mplan2vdl_tpu.engine.kernels import sorted_gather as jgather
+from mplan2vdl_tpu_torch.engine.kernels import compact as tcompact
+from mplan2vdl_tpu_torch.engine.kernels import multiagg as tmultiagg
+from mplan2vdl_tpu_torch.engine.kernels import segred as tsegred
+from mplan2vdl_tpu_torch.engine.kernels import sorted_gather as tgather
+
+
+@pytest.fixture
+def interpret_mode(monkeypatch):
+    monkeypatch.setenv("MPLAN2VDL_PL_INTERPRET", "1")
+
+
+# ------------------------------------------------------------- compaction
+def _masks():
+    """(id, mask, n_out) over the cases of tests/test_compact.py."""
+    out = []
+    for n, p in [(100, 0.5), (8192, 0.3), (20000, 0.05), (16401, 0.9)]:
+        rng = np.random.default_rng(1)
+        out.append((f"random-{n}-{p}", rng.random(n) < p, None))
+    out.append(("all", np.ones(9000, bool), None))
+    out.append(("none", np.zeros(9000, bool), None))
+    rng = np.random.default_rng(2)
+    out.append(("n_out-trim", rng.random(20000) < 0.1, 4096))
+    rng = np.random.default_rng(3)
+    n = 8192 * 3 + 1
+    strag = np.zeros(n, bool)
+    strag[np.sort(rng.choice(n, 97, replace=False))] = True
+    out.append(("block-boundary-carry", strag, None))
+    return out
+
+
+@pytest.mark.parametrize("mask,n_out", [c[1:] for c in _masks()],
+                         ids=[c[0] for c in _masks()])
+def test_compact_matches_jax(interpret_mode, mask, n_out):
+    want = np.asarray(jcompact.compact_positions(jnp.asarray(mask), n_out))
+    got = tcompact.compact_positions(torch.from_numpy(mask), n_out)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_compact_rejects_bad_input():
+    with pytest.raises(TypeError):
+        tcompact.compact_positions(torch.zeros(8, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        tcompact.compact_positions(torch.zeros(8, dtype=torch.bool), 9)
+
+
+# ----------------------------------------------------------------- gather
+def _gather_cases():
+    """(id, sources, positions, valid) over tests/test_sorted_gather.py."""
+    out = []
+    for sel in (0.9, 0.5, 0.2):
+        rng = np.random.default_rng(3)
+        n = 40_000
+        src = rng.integers(-(1 << 30), 1 << 30, n).astype(np.int32)
+        pos = np.sort(rng.choice(n, int(n * sel), replace=False))
+        out.append((f"int32-sel{sel}", [src], pos.astype(np.int32), None))
+    rng = np.random.default_rng(4)
+    n = 20_000
+    src = rng.integers(-(1 << 60), 1 << 60, n).astype(np.int64)
+    pos = np.sort(rng.choice(n, n // 2, replace=False)).astype(np.int32)
+    out.append(("int64", [src], pos, None))
+    rng = np.random.default_rng(5)
+    src = rng.integers(0, 1 << 30, n).astype(np.int32)
+    pos = np.sort(rng.choice(n, 4000, replace=False)).astype(np.int32)
+    pos[2500:] = 0  # garbage past valid, as _mask_tail leaves it
+    out.append(("masked-tail", [src], pos, 2500))
+    rng = np.random.default_rng(6)
+    n = 600_000
+    src = rng.integers(0, 1 << 30, n).astype(np.int32)
+    pos = np.sort(rng.choice(n, 2048, replace=False)).astype(np.int32)
+    out.append(("sparse-spans", [src], pos, None))
+    rng = np.random.default_rng(7)
+    n = 30_000
+    src = rng.integers(0, 1 << 30, n).astype(np.int32)
+    base = np.sort(rng.choice(n, 3000, replace=False))
+    pos = np.sort(np.concatenate([base, base, base]))[:6144].astype(np.int32)
+    out.append(("duplicates-clusters", [src], pos, None))
+    rng = np.random.default_rng(8)
+    n = 30_000
+    srcs = [rng.integers(-(1 << 30), 1 << 30, n).astype(np.int32),
+            rng.integers(-(1 << 60), 1 << 60, n).astype(np.int64),
+            rng.integers(0, 100, n).astype(np.int32)]
+    pos = np.sort(rng.choice(n, n // 3, replace=False)).astype(np.int32)
+    out.append(("many-mixed", srcs, pos, 9000))
+    return out
+
+
+@pytest.mark.parametrize("srcs,pos,valid", [c[1:] for c in _gather_cases()],
+                         ids=[c[0] for c in _gather_cases()])
+def test_gather_matches_jax(interpret_mode, srcs, pos, valid):
+    valid = len(pos) if valid is None else valid
+    jpos = jnp.asarray(pos)
+    if len(srcs) == 1:
+        want = [np.asarray(jgather.sorted_gather(jnp.asarray(srcs[0]), jpos,
+                                                 valid))]
+        got = [tgather.sorted_gather(torch.from_numpy(srcs[0]),
+                                     torch.from_numpy(pos), valid)]
+    else:
+        fit = jgather.resolve_fit(len(srcs[0]), jpos, valid)
+        want = [np.asarray(w) for w in jgather.gather_many(
+            [jnp.asarray(s) for s in srcs], jpos, valid, static_fit=fit)]
+        got = tgather.gather_many([torch.from_numpy(s) for s in srcs],
+                                  torch.from_numpy(pos), valid)
+    for g, w, s in zip(got, want, srcs):
+        assert g.dtype == torch.from_numpy(s).dtype
+        # rows past valid are unspecified to callers: compare the prefix
+        np.testing.assert_array_equal(g.numpy()[:valid], w[:valid])
+
+
+def test_gather_device_valid_and_tail():
+    """A count held in a tensor acts like the int; rows past ``valid``
+    repeat the last valid position (``_prep_pos``)."""
+    src = torch.arange(100, dtype=torch.int64) * 3
+    pos = torch.tensor([1, 5, 9, 0, 0], dtype=torch.int32)
+    for valid in (3, torch.tensor(3)):
+        out = tgather.sorted_gather(src, pos, valid)
+        assert out.tolist() == [3, 15, 27, 27, 27]
+
+
+# ------------------------------------------------------- fused aggregate
+def _pad(a, block=jmultiagg.BLOCK, fill=0):
+    m = -(-len(a) // block) * block
+    out = np.full(m, fill, a.dtype)
+    out[:len(a)] = a
+    return out
+
+
+def _q1_like(seed):
+    rng = np.random.default_rng(seed)
+    n = 5000
+    cols = [rng.integers(100, 500_000, n).astype(np.int32),
+            rng.integers(90_000, 11_000_000, n).astype(np.int32),
+            rng.integers(0, 11, n).astype(np.int32),
+            rng.integers(0, 9, n).astype(np.int32)]
+    gid = rng.integers(0, 6, n).astype(np.int32)
+    gid[rng.random(n) < 0.3] = -1  # masked-out rows
+    specs = [
+        dict(base=0, bits=20),
+        dict(base=1, bits=24),
+        dict(base=1, factors=((100, -1, 2),), bits=31),
+        dict(base=1, factors=((100, -1, 2), (100, 1, 3)), bits=38),
+        dict(base=2, bits=4),
+        dict(base=None, bits=1),
+        dict(base=0, bits=31, op="max"),
+    ]
+    return cols, gid, specs, 6, jmultiagg.BLOCK
+
+
+def _extremes():
+    n = 2048
+    cols = [np.full(n, 2**31 - 1, np.int32), np.zeros(n, np.int32)]
+    specs = [dict(base=0, factors=((100, -1, 1), (100, 1, 1)), bits=45)]
+    return cols, np.zeros(n, np.int32), specs, 1, 2048
+
+
+@pytest.mark.parametrize("case", [0, 1, 2, "extremes"])
+def test_fused_group_aggregate_matches_jax(case):
+    cols, gid, specs, groups, block = (_extremes() if case == "extremes"
+                                       else _q1_like(case))
+    want = np.asarray(jmultiagg.fused_group_aggregate(
+        [jnp.asarray(_pad(c, block)) for c in cols],
+        jnp.asarray(_pad(gid, block, fill=-1)),
+        [jmultiagg.AggSpec(**s) for s in specs], groups, block=block,
+        interpret=True))
+    got = tmultiagg.fused_group_aggregate(
+        [torch.from_numpy(c) for c in cols], torch.from_numpy(gid),
+        [tmultiagg.AggSpec(**s) for s in specs], groups)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_spec_words_layout():
+    specs = [tmultiagg.AggSpec(base=3, factors=((100, -1, 4), (7, 1, 0))),
+             tmultiagg.AggSpec(base=None, bits=1),
+             tmultiagg.AggSpec(base=1, bits=31, op="max")]
+    assert tmultiagg.spec_words(specs) == [0, 3, 2, 100, -1, 4, 7, 1, 0,
+                                           0, -1, 0, 1, 1, 0]
+    assert [s.nlimb for s in specs] == [2, 1, 1]
+
+
+# ------------------------------------------------- segmented reductions
+@pytest.mark.parametrize("op", ["sum", "max", "min"])
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_masked_group_reduce_with_counts_matches_jax(op, dtype):
+    rng = np.random.default_rng(11)
+    n, domain = 3000, 7
+    info = np.iinfo(dtype)
+    data = rng.integers(info.min // 4, info.max // 4, n).astype(dtype)
+    ids = rng.integers(0, domain + 1, n)  # domain = masked-out slot
+    ids[:5] = 3  # group 6 may stay empty; group 3 never does
+    jagg, jcnt = jsegred.masked_group_reduce_with_counts(
+        jnp.asarray(data), jnp.asarray(ids), domain, op)
+    tagg, tcnt = tsegred.masked_group_reduce_with_counts(
+        torch.from_numpy(data), torch.from_numpy(ids), domain, op)
+    np.testing.assert_array_equal(tagg.numpy(), np.asarray(jagg))
+    np.testing.assert_array_equal(tcnt.numpy(), np.asarray(jcnt))
+
+
+# ------------------------------------------- prefix sums and searches
+@pytest.mark.parametrize("dtype,n", [(np.int32, 1), (np.int32, 5000),
+                                     (np.int64, 5000)])
+def test_cumsum_matches_jax(dtype, n):
+    from mplan2vdl_tpu.engine import scan as jscan
+    from mplan2vdl_tpu_torch.engine import scan as tscan
+
+    rng = np.random.default_rng(12)
+    x = rng.integers(-1000, 1000, n).astype(dtype)
+    want = np.asarray(jscan.cumsum(jnp.asarray(x)))
+    got = tscan.cumsum(torch.from_numpy(x))
+    assert got.dtype == torch.from_numpy(x).dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+    flags = (x > 0).astype(np.int32)
+    want = np.asarray(jscan.cumsum_flags(jnp.asarray(flags)))
+    got = tscan.cumsum_flags(torch.from_numpy(flags))
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+def test_searchsorted_fast_matches_jax(side):
+    from mplan2vdl_tpu.engine import mergesearch as jms
+    from mplan2vdl_tpu_torch.engine import mergesearch as tms
+
+    rng = np.random.default_rng(13)
+    table = np.sort(rng.integers(0, 500, 300)).astype(np.int32)
+    queries = rng.integers(-10, 510, 4000).astype(np.int32)
+    want = np.asarray(jms.searchsorted_fast(jnp.asarray(table),
+                                            jnp.asarray(queries), side))
+    got = tms.searchsorted_fast(torch.from_numpy(table),
+                                torch.from_numpy(queries), side)
+    np.testing.assert_array_equal(got.numpy(), want)
