@@ -7,17 +7,19 @@ Phases (any failure ends the run with a nonzero exit; nothing is caught):
      nvcc and driver versions;
   2. builds the CUDA kernels from ``mplan2vdl_tpu_torch/engine/kernels/csrc``;
   3. holds each kernel exactly equal to its plain PyTorch version on the
-     card, at the shapes of a TPC-H lineitem of the chosen scale, and times
-     kernel, plain version and library yardstick with CUDA events;
-  4. drives the slice end to end: TPC-H Q6, Q1 (fused by the automatic
-     gate, then with MPLAN2VDL_FUSED_AGG=0) and a lineitem
-     scan-filter-project, through ``plan_to_vexps`` + ``CompiledQuery`` on
-     ``cuda``, row-exact against the oracles, with the kernels' launch
-     counters read around the run.
+     card, at the shapes of a TPC-H store of the chosen scale (lineitem
+     rows, orders slots, dimension tables), and times kernel, plain version
+     and library yardstick with CUDA events;
+  4. drives the port end to end through ``plan_to_vexps`` +
+     ``CompiledQuery`` on ``cuda``: TPC-H Q6, Q1 (fused by the automatic
+     gate, then with MPLAN2VDL_FUSED_AGG=0), a lineitem scan-filter-project,
+     then the FK-join path: TPC-H Q3 (no-order form), Q5 and a sparse
+     group-by over l_orderkey.  Each run is row-exact against its oracle,
+     and the kernels' launch counters are read around it.
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
-the script exits nonzero and prints no result.  The plan texts below are
-the single copy the tests import.
+the script exits nonzero and prints no result.  The plan texts and the
+numpy oracles below are the single copy the tests import.
 """
 
 from __future__ import annotations
@@ -71,6 +73,65 @@ PLAN_FILTER_PROJECT = """project (
 ) [ lineitem.l_orderkey, lineitem.l_quantity, lineitem.l_extendedprice, lineitem.l_discount ]
 """
 
+# TPC-H Q3 in the no-order form (no ORDER BY / LIMIT): two FK joins and a
+# sparse group-by over (l_orderkey, o_orderdate, o_shippriority)
+PLAN_Q3 = """project (
+| group by (
+| | join (
+| | | join (
+| | | | select (
+| | | | | table(sys.customer) [ customer.c_custkey NOT NULL, customer.c_mktsegment NOT NULL ] COUNT
+| | | | ) [ customer.c_mktsegment NOT NULL = char(10) "BUILDING" ],
+| | | | select (
+| | | | | table(sys.orders) [ orders.o_orderkey NOT NULL, orders.o_custkey NOT NULL, orders.o_orderdate NOT NULL, orders.o_shippriority NOT NULL ] COUNT
+| | | | ) [ orders.o_orderdate NOT NULL < date "1995-03-15" ]
+| | | ) [ customer.c_custkey NOT NULL = orders.o_custkey NOT NULL ],
+| | | select (
+| | | | table(sys.lineitem) [ lineitem.l_orderkey NOT NULL, lineitem.l_extendedprice NOT NULL, lineitem.l_discount NOT NULL, lineitem.l_shipdate NOT NULL ] COUNT
+| | | ) [ lineitem.l_shipdate NOT NULL > date "1995-03-15" ]
+| | ) [ orders.o_orderkey NOT NULL = lineitem.l_orderkey NOT NULL ]
+| ) [ lineitem.l_orderkey, orders.o_orderdate, orders.o_shippriority ] [ lineitem.l_orderkey, sys.sum no nil (sys.sql_mul(lineitem.l_extendedprice NOT NULL, sys.sql_sub(decimal(15,2) "100", lineitem.l_discount NOT NULL))) as L1.L1, orders.o_orderdate, orders.o_shippriority ]
+) [ lineitem.l_orderkey, L1 as L2.revenue, orders.o_orderdate, orders.o_shippriority ]
+"""
+
+# TPC-H Q5: five FK joins, the non-FK condition c_nationkey = s_nationkey,
+# and a dense group-by over n_name
+PLAN_Q5 = """project (
+| group by (
+| | join (
+| | | join (
+| | | | join (
+| | | | | join (
+| | | | | | join (
+| | | | | | | table(sys.customer) [ customer.c_custkey NOT NULL, customer.c_nationkey NOT NULL ] COUNT,
+| | | | | | | select (
+| | | | | | | | table(sys.orders) [ orders.o_orderkey NOT NULL, orders.o_custkey NOT NULL, orders.o_orderdate NOT NULL ] COUNT
+| | | | | | | ) [ orders.o_orderdate NOT NULL >= date "1994-01-01", orders.o_orderdate NOT NULL < date "1995-01-01" ]
+| | | | | | ) [ customer.c_custkey NOT NULL = orders.o_custkey NOT NULL ],
+| | | | | | table(sys.lineitem) [ lineitem.l_orderkey NOT NULL, lineitem.l_suppkey NOT NULL, lineitem.l_extendedprice NOT NULL, lineitem.l_discount NOT NULL ] COUNT
+| | | | | ) [ orders.o_orderkey NOT NULL = lineitem.l_orderkey NOT NULL ],
+| | | | | table(sys.supplier) [ supplier.s_suppkey NOT NULL, supplier.s_nationkey NOT NULL ] COUNT
+| | | | ) [ lineitem.l_suppkey NOT NULL = supplier.s_suppkey NOT NULL, customer.c_nationkey NOT NULL = supplier.s_nationkey NOT NULL ],
+| | | | table(sys.nation) [ nation.n_nationkey NOT NULL, nation.n_name NOT NULL, nation.n_regionkey NOT NULL ] COUNT
+| | | ) [ supplier.s_nationkey NOT NULL = nation.n_nationkey NOT NULL ],
+| | | select (
+| | | | table(sys.region) [ region.r_regionkey NOT NULL, region.r_name NOT NULL ] COUNT
+| | | ) [ region.r_name NOT NULL = char(25) "ASIA" ]
+| | ) [ nation.n_regionkey NOT NULL = region.r_regionkey NOT NULL ]
+| ) [ nation.n_name ] [ nation.n_name, sys.sum no nil (sys.sql_mul(lineitem.l_extendedprice NOT NULL, sys.sql_sub(decimal(15,2) "100", lineitem.l_discount NOT NULL))) as L1.L1 ]
+) [ nation.n_name, L1 as L2.revenue ]
+"""
+
+# a masked group-by over the sparse l_orderkey domain: sum, min, max, count
+PLAN_SPARSE_GROUPBY = """project (
+| group by (
+| | select (
+| | | table(sys.lineitem) [ lineitem.l_orderkey NOT NULL, lineitem.l_quantity NOT NULL, lineitem.l_shipdate NOT NULL ] COUNT
+| | ) [ lineitem.l_shipdate NOT NULL >= date "1995-01-01" ]
+| ) [ lineitem.l_orderkey ] [ lineitem.l_orderkey, sys.sum no nil (lineitem.l_quantity NOT NULL) as L1.L1, sys.min no nil (lineitem.l_shipdate NOT NULL) as L2.L2, sys.max no nil (lineitem.l_quantity NOT NULL) as L3.L3, sys.count no nil (lineitem.l_quantity NOT NULL) as L4.L4 ]
+) [ lineitem.l_orderkey, L1 as L5.sum_qty, L2 as L5.first_ship, L3 as L5.max_qty, L4 as L5.n ]
+"""
+
 Q1_COLUMNS = ["l_returnflag", "l_linestatus", "sum_qty", "sum_base_price",
               "sum_disc_price", "sum_charge", "avg_qty", "avg_price",
               "avg_disc", "count_order"]
@@ -91,7 +152,139 @@ KERNELS = {
                             " + mplan2vdl_tpu/engine/kernels/sorted_gather.py:507"),
     "multiagg": dict(source="mplan2vdl_tpu_torch/engine/kernels/csrc/multiagg.cu",
                      replaces="mplan2vdl_tpu/engine/kernels/multiagg.py:252"),
+    "scatter": dict(source="mplan2vdl_tpu_torch/engine/kernels/csrc/scatter.cu",
+                    replaces="mplan2vdl_tpu/engine/kernels/scatter.py:236"),
+    "small_gather": dict(
+        source="mplan2vdl_tpu_torch/engine/kernels/csrc/small_gather.cu",
+        replaces="mplan2vdl_tpu/engine/kernels/sorted_gather.py:243"
+                 " + mplan2vdl_tpu/engine/kernels/sorted_gather.py:507"),
 }
+
+# the wrapper module and counter attribute of each kernel's launches
+COUNTERS = {"compact": ("compact", "launches"),
+            "gather": ("sorted_gather", "launches"),
+            "multiagg": ("multiagg", "launches"),
+            "scatter": ("scatter", "launches"),
+            "small_gather": ("sorted_gather", "small_launches")}
+
+Q3_COLUMNS = ["l_orderkey", "revenue", "o_orderdate", "o_shippriority"]
+Q5_COLUMNS = ["n_name", "revenue"]
+SPARSE_COLUMNS = ["l_orderkey", "sum_qty", "first_ship", "max_qty", "n"]
+
+
+# ---------------------------------------------------------------- oracles
+# Straightforward numpy versions of the FK-join plans.  They join through
+# the primary keys with np.searchsorted, not through the store's %fk index
+# columns, so they share nothing with the engine's join machinery.  Each
+# returns the result columns (raw encoded integers) in the plan's order.
+def _day(y, m, d):
+    import datetime
+
+    return datetime.date(y, m, d).toordinal() + 365
+
+
+def _code(st, tab, col, s):
+    return next(c for c, v in st.decoders[(tab, col)].items() if v == s)
+
+
+def _pk_lookup(keys, probe):
+    """Row of ``keys`` (a primary key) holding each ``probe`` value, and
+    whether there is one."""
+    import numpy as np
+
+    order = np.argsort(keys, kind="stable")
+    sk = keys[order]
+    i = np.clip(np.searchsorted(sk, probe), 0, max(len(sk) - 1, 0))
+    return order[i], sk[i] == probe
+
+
+def _group(keys, aggs):
+    """Group rows by the key tuple: the distinct keys in ascending order,
+    then one column per ``(values, ufunc)`` reduced over each group."""
+    import numpy as np
+
+    order = np.lexsort(keys[::-1])
+    ks = [np.asarray(k)[order] for k in keys]
+    head = np.zeros(len(order), dtype=bool)
+    head[:1] = True
+    for k in ks:
+        head[1:] |= k[1:] != k[:-1]
+    starts = np.flatnonzero(head)
+    outs = [k[starts] for k in ks]
+    for vals, ufunc in aggs:
+        v = np.asarray(vals, np.int64)[order]
+        outs.append(ufunc.reduceat(v, starts) if len(starts)
+                    else v[:0])
+    return outs
+
+
+def oracle_q3(st):
+    import numpy as np
+
+    c = lambda t, n: st.columns[(t, n)]  # noqa: E731
+    cust_ok = (c("customer", "c_mktsegment")
+               == _code(st, "customer", "c_mktsegment", "BUILDING"))
+    ci, cfound = _pk_lookup(c("customer", "c_custkey"), c("orders", "o_custkey"))
+    ord_ok = (cfound & cust_ok[ci]
+              & (c("orders", "o_orderdate") < _day(1995, 3, 15)))
+    oi, ofound = _pk_lookup(c("orders", "o_orderkey"),
+                            c("lineitem", "l_orderkey"))
+    m = (ofound & ord_ok[oi]
+         & (c("lineitem", "l_shipdate") > _day(1995, 3, 15)))
+    oi = oi[m]
+    rev = (c("lineitem", "l_extendedprice")[m].astype(np.int64)
+           * (100 - c("lineitem", "l_discount")[m].astype(np.int64)))
+    key, date, prio, revenue = _group(
+        [c("lineitem", "l_orderkey")[m], c("orders", "o_orderdate")[oi],
+         c("orders", "o_shippriority")[oi]], [(rev, np.add)])
+    return [key, revenue, date, prio]
+
+
+def oracle_q5(st):
+    import numpy as np
+
+    c = lambda t, n: st.columns[(t, n)]  # noqa: E731
+    asia = c("region", "r_regionkey")[
+        c("region", "r_name") == _code(st, "region", "r_name", "ASIA")]
+    oi, ofound = _pk_lookup(c("orders", "o_orderkey"),
+                            c("lineitem", "l_orderkey"))
+    si, sfound = _pk_lookup(c("supplier", "s_suppkey"),
+                            c("lineitem", "l_suppkey"))
+    ci, cfound = _pk_lookup(c("customer", "c_custkey"), c("orders", "o_custkey"))
+    odate = c("orders", "o_orderdate")
+    ord_ok = cfound & (odate >= _day(1994, 1, 1)) & (odate < _day(1995, 1, 1))
+    s_nat = c("supplier", "s_nationkey")[si]
+    ni, nfound = _pk_lookup(c("nation", "n_nationkey"), s_nat)
+    m = (ofound & sfound & nfound & ord_ok[oi]
+         & (c("customer", "c_nationkey")[ci[oi]] == s_nat)
+         & np.isin(c("nation", "n_regionkey")[ni], asia))
+    rev = (c("lineitem", "l_extendedprice")[m].astype(np.int64)
+           * (100 - c("lineitem", "l_discount")[m].astype(np.int64)))
+    return _group([c("nation", "n_name")[ni[m]]], [(rev, np.add)])
+
+
+def oracle_sparse_groupby(st):
+    import numpy as np
+
+    c = lambda n: st.columns[("lineitem", n)]  # noqa: E731
+    m = c("l_shipdate") >= _day(1995, 1, 1)
+    qty = c("l_quantity")[m]
+    return _group([c("l_orderkey")[m]],
+                  [(qty, np.add), (c("l_shipdate")[m], np.minimum),
+                   (qty, np.maximum), (np.ones(len(qty), np.int64), np.add)])
+
+
+def same_rows(got, want) -> bool:
+    """Whether two column lists hold the same rows, in any order."""
+    import numpy as np
+
+    got = [np.asarray(g, np.int64) for g in got]
+    want = [np.asarray(w, np.int64) for w in want]
+    if len(got) != len(want) or any(len(g) != len(want[0])
+                                    for g in got + want):
+        return False
+    go, wo = np.lexsort(got[::-1]), np.lexsort(want[::-1])
+    return all(np.array_equal(g[go], w[wo]) for g, w in zip(got, want))
 
 
 def _sh(cmd):
@@ -190,6 +383,7 @@ class Smoke:
         t1 = time.perf_counter()
         self.cfg = self.st.make_catalog()
         self.n = len(self.st.columns[("lineitem", "l_orderkey")])
+        self.n_orders = len(self.st.columns[("orders", "o_orderkey")])
         print(json.dumps({"datagen_s": t1 - t0,
                           "catalog_s": time.perf_counter() - t1,
                           "sf": self.args.sf, "lineitem_rows": self.n}),
@@ -222,7 +416,7 @@ class Smoke:
                (("1.9%", m19), ("15.9%", m159), ("98.6%", m986))}
         print(json.dumps({"densities": {k: v / n for k, v in cnt.items()}}),
               flush=True)
-        self.max_err = {"compact": 0, "gather": 0, "multiagg": 0}
+        self.max_err = {k: 0 for k in KERNELS}
         self.timed = {}
 
         # ---- compaction
@@ -295,6 +489,18 @@ class Smoke:
         self.kernel_time("gather", f"k=4 int32[{n}] at int32[{c159}] "
                          "ascending positions", ms, plain_ms, lib_ms,
                          _bound_ms(nbytes), timed_launches)
+        # the k = 1 call (sorted_gather, the JAX package's single-source
+        # kernel), timed on its own
+        src = srcs[0]
+        sg.launches = 0
+        ms = self.cuda_ms(lambda: sg.sorted_gather(src, pos, c159), reps)
+        timed_launches = sg.launches
+        plain_ms = self.cuda_ms(
+            lambda: sg.gather_many_plain([src], pos, c159), reps)
+        lib_ms = self.cuda_ms(lambda: torch.index_select(src, 0, posl), reps)
+        self.kernel_time("gather k=1", f"k=1 int32[{n}] at int32[{c159}] "
+                         "ascending positions", ms, plain_ms, lib_ms,
+                         _bound_ms(4 * c159 + 2 * 4 * c159), timed_launches)
 
         # ---- fused aggregate
         from mplan2vdl_tpu_torch.engine.lower import CompiledQuery, \
@@ -346,6 +552,139 @@ class Smoke:
                          "columns + int32 gid", ms, plain_ms, None,
                          _bound_ms(4 * (len(cols) + 1) * n), timed_launches)
 
+        self.scatter_kernel()
+        self.small_gather_kernel()
+
+    def scatter_kernel(self):
+        """The monotone scatter into the slots of an orders-sized table,
+        at the densities of Q3's and Q5's mask-deduction scatters."""
+        torch = self.torch
+        from mplan2vdl_tpu_torch.engine.kernels import compact, scatter
+
+        L = self.n_orders
+        slots = torch.arange(L, device=self.dev)
+        m15 = (slots * 2654435761 % 100) < 15
+        c15 = int(m15.sum())
+        p15 = compact.compact_positions(m15, c15)
+        pall = slots.to(torch.int32)
+        gen = torch.Generator(device=self.dev).manual_seed(self.args.seed)
+
+        def rand(k, dtype):
+            bits = 62 if dtype == torch.int64 else 30
+            return torch.randint(-(1 << bits), 1 << bits, (k,),
+                                 generator=gen, device=self.dev, dtype=dtype)
+
+        def s_case(what, p, src):
+            got = scatter.monotone_scatter(p, src, L)
+            want = scatter.monotone_scatter_plain(p, src, L)
+            e = self.equal(f"scatter {what}", got, want)
+            self.max_err["scatter"] = max(self.max_err["scatter"], e)
+
+        s32 = rand(c15, torch.int32)
+        s_case(f"L={L} 15% int32", p15, s32)
+        s_case(f"L={L} 15% int64", p15, rand(c15, torch.int64))
+        s_case(f"L={L} 100% int32", pall, rand(L, torch.int32))
+        s_case(f"L={L} 100% int64, int64 positions", slots,
+               rand(L, torch.int64))
+        tail = p15.clone()
+        tail[c15 // 2:] = L
+        s_case("invalid tail mapped to L", tail, s32)
+        s_case("n=0", p15[:0], s32[:0])
+
+        scatter.launches = 0
+        ms = self.cuda_ms(lambda: scatter.monotone_scatter(p15, s32, L),
+                          REPS)
+        timed_launches = scatter.launches
+        plain_ms = self.cuda_ms(
+            lambda: scatter.monotone_scatter_plain(p15, s32, L), REPS)
+        p64 = p15.long()
+        lib_ms = self.cuda_ms(lambda: torch.zeros(
+            L, dtype=s32.dtype, device=self.dev).index_copy_(0, p64, s32),
+            REPS)
+        self.kernel_time("scatter", f"int32[{c15}] at ascending int32 "
+                         f"positions into int32[{L}] (15%)", ms, plain_ms,
+                         lib_ms, _bound_ms(c15 * (4 + 4) + 4 * L),
+                         timed_launches)
+
+    def small_gather_kernel(self):
+        """The small-table gather at lineitem-many random positions into
+        tables of region, nation and SMALL_TABLE size."""
+        torch = self.torch
+        from mplan2vdl_tpu_torch.engine.kernels import _lib
+        from mplan2vdl_tpu_torch.engine.kernels import sorted_gather as sg
+
+        m = self.n
+        budget = _lib.lib().m2v_small_gather_smem_budget()
+        gen = torch.Generator(device=self.dev).manual_seed(self.args.seed + 1)
+
+        def table(k, dtype):
+            bits = 62 if dtype == torch.int64 else 30
+            return torch.randint(-(1 << bits), 1 << bits, (k,),
+                                 generator=gen, device=self.dev, dtype=dtype)
+
+        def positions(n):
+            return torch.randint(0, n, (m,), generator=gen, device=self.dev,
+                                 dtype=torch.int32)
+
+        def g_case(what, ss, p):
+            nbytes = sum(-(-s.numel() * s.element_size() // 16) * 16
+                         for s in ss)
+            branch = "shared" if nbytes <= budget else "ldg"
+            got = sg.gather_many(ss, p, m, small=True)
+            want = sg.small_gather_plain(ss, p)
+            e = self.equal(f"small_gather {what} ({branch})", got, want)
+            self.max_err["small_gather"] = max(self.max_err["small_gather"],
+                                               e)
+            return branch
+
+        branches = set()
+        for n in (5, 25, sg.SMALL_TABLE):
+            p = positions(n)
+            t32, t64 = table(n, torch.int32), table(n, torch.int64)
+            branches.add(g_case(f"k=1 int32[{n}]", [t32], p))
+            branches.add(g_case(f"k=3 int32/int64/int32 [{n}]",
+                                [t32, t64, table(n, torch.int32)], p))
+        wild = positions(25)
+        wild[::3] = -7
+        wild[1::3] = 25 + 1000
+        branches.add(g_case("out-of-range positions clip",
+                            [table(25, torch.int32)], wild))
+        p64 = positions(25).to(torch.int64)
+        branches.add(g_case("int64 positions", [table(25, torch.int64)],
+                            p64))
+        ten = [table(25, torch.int32) for _ in range(9)] + [
+            table(25, torch.int64)]
+        branches.add(g_case("k=10 (two launches)", ten, positions(25)))
+        if branches != {"shared", "ldg"}:
+            raise AssertionError(f"small_gather checked only {branches}")
+
+        # Q5's shape: one int32 nation column at lineitem-many positions
+        t25, p25 = table(25, torch.int32), positions(25)
+        sg.small_launches = 0
+        ms = self.cuda_ms(lambda: sg.small_table_gather(t25, p25, m), REPS)
+        timed_launches = sg.small_launches
+        plain_ms = self.cuda_ms(lambda: sg.small_gather_plain([t25], p25),
+                                REPS)
+        pl = p25.long()
+        lib_ms = self.cuda_ms(lambda: torch.index_select(t25, 0, pl), REPS)
+        self.kernel_time("small_gather", f"k=1 int32[25] at int32[{m}] "
+                         "random positions", ms, plain_ms, lib_ms,
+                         _bound_ms(m * 4 + m * 4 + 25 * 4), timed_launches)
+        # the batched call (gather_many(small=True)): three nation-sized
+        # columns, mixed widths, sharing the positions
+        t3 = [t25, table(25, torch.int64), table(25, torch.int32)]
+        sg.small_launches = 0
+        ms = self.cuda_ms(lambda: sg.gather_many(t3, p25, m, small=True),
+                          REPS)
+        timed_launches = sg.small_launches
+        plain_ms = self.cuda_ms(lambda: sg.small_gather_plain(t3, p25), REPS)
+        lib_ms = self.cuda_ms(
+            lambda: [torch.index_select(t, 0, pl) for t in t3], REPS)
+        nbytes = m * 4 + sum((m + 25) * t.element_size() for t in t3)
+        self.kernel_time("small_gather k=3", "k=3 int32/int64/int32[25] at "
+                         f"int32[{m}] random positions", ms, plain_ms,
+                         lib_ms, _bound_ms(nbytes), timed_launches)
+
     def kernel_time(self, name, shape, ms, plain_ms, lib_ms, bound_ms,
                     launches):
         rec = {"kernel": name, "shape": shape, "ms": ms,
@@ -357,15 +696,18 @@ class Smoke:
         print(json.dumps(rec), flush=True)
 
     def query_phase(self):
+        import importlib
+
         import numpy as np
 
-        from mplan2vdl_tpu_torch.engine.kernels import compact, multiagg
-        from mplan2vdl_tpu_torch.engine.kernels import sorted_gather as sg
         from mplan2vdl_tpu_torch.engine.lower import CompiledQuery, \
             fused_agg_on, plan_to_vexps
         from mplan2vdl_tpu_torch.oracle import tpch
 
-        counters = {"compact": compact, "gather": sg, "multiagg": multiagg}
+        counters = {
+            k: (importlib.import_module(
+                f"mplan2vdl_tpu_torch.engine.kernels.{mod}"), attr)
+            for k, (mod, attr) in COUNTERS.items()}
         st, cfg = self.st, self.cfg
         want_q6 = tpch.q6(st)
         want_q1 = tpch.q1(st)
@@ -390,17 +732,36 @@ class Smoke:
             for g, w in zip(res.columns, want_fp, strict=True):
                 assert np.array_equal(g, w), "filter-project rows differ"
 
+        def check_rows(columns, oracle):
+            t0 = time.perf_counter()
+            want = oracle(st)
+            print(json.dumps({"oracle": oracle.__name__,
+                              "s": time.perf_counter() - t0}), flush=True)
+
+            def check(res):
+                assert [nm[-1] for nm in res.names] == columns, res.names
+                assert same_rows(res.columns, want), "rows differ"
+            return check
+
         q1_auto = "Q1 fused (auto gate)" if fused_agg_on(
             st, [("lineitem", "l_quantity")]) else "Q1 (auto gate: unfused)"
-        runs = [("Q6", PLAN_Q6, None, check_q6),
-                (q1_auto, PLAN_Q1, None, check_q1)]
+        # (name, plan, MPLAN2VDL_FUSED_AGG, check, kernels it must launch)
+        runs = [("Q6", PLAN_Q6, None, check_q6, ()),
+                (q1_auto, PLAN_Q1, None, check_q1, ())]
         if not q1_auto.startswith("Q1 fused"):
-            runs.append(("Q1 fused (forced)", PLAN_Q1, "1", check_q1))
+            runs.append(("Q1 fused (forced)", PLAN_Q1, "1", check_q1, ()))
         runs += [("Q1 unfused (MPLAN2VDL_FUSED_AGG=0)", PLAN_Q1, "0",
-                  check_q1),
-                 ("filter-project", PLAN_FILTER_PROJECT, None, check_fp)]
+                  check_q1, ()),
+                 ("filter-project", PLAN_FILTER_PROJECT, None, check_fp, ()),
+                 ("Q3", PLAN_Q3, None, check_rows(Q3_COLUMNS, oracle_q3),
+                  ("compact", "gather", "scatter")),
+                 ("Q5", PLAN_Q5, None, check_rows(Q5_COLUMNS, oracle_q5),
+                  ("compact", "gather", "scatter", "small_gather")),
+                 ("sparse group-by", PLAN_SPARSE_GROUPBY, None,
+                  check_rows(SPARSE_COLUMNS, oracle_sparse_groupby),
+                  ("compact", "gather"))]
         total = {k: 0 for k in counters}
-        for name, plan, fused, check in runs:
+        for name, plan, fused, check, must in runs:
             if fused is None:
                 os.environ.pop("MPLAN2VDL_FUSED_AGG", None)
             else:
@@ -412,13 +773,17 @@ class Smoke:
             cq.device_args()
             self.sync()
             load_ms = (time.perf_counter() - t0) * 1e3
-            for mod in counters.values():
-                mod.launches = 0
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
             res = cq()
-            launches = {k: mod.launches for k, mod in counters.items()}
+            launches = {k: getattr(mod, attr)
+                        for k, (mod, attr) in counters.items()}
             for k in total:
                 total[k] += launches[k]
             check(res)
+            idle = [k for k in must if launches[k] == 0]
+            if idle:
+                raise AssertionError(f"{name} launched no {idle} kernel")
             self.torch.cuda.reset_peak_memory_stats()
             times = []
             for _ in range(5):
@@ -532,9 +897,10 @@ def main(argv=None) -> int:
             json.dump(s.records, f, indent=1)
     print(json.dumps({"wall_s": s.records["wall_s"]}), flush=True)
     print(json.dumps(summary), flush=True)
+    # the run uses one card, whatever else the machine shows
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": 1}}), flush=True)
     return 0
 
 

@@ -4,21 +4,22 @@ Execution model: every vector is a buffer whose length is the node's count
 bound, paired with a ``valid`` count; slots past ``valid`` hold zeros.  The
 JAX engine traces the whole DAG into one program with static shapes, so it
 resolves data-dependent sizes in a counting pre-pass; the port runs eagerly
-and reads each such size where it arises instead — for this slice that is
-only a selection's survivor count (one host sync per ``Fold FSel``).  The
-results are the JAX engine's, row for row.
+and reads each such size where it arises instead — so far that is only a
+selection's survivor count (one host sync per ``Fold FSel``).  The results
+are the JAX engine's, row for row.
 
 Physical dtypes are chosen per node from the catalog's value bounds (int32
 when they fit, int64 otherwise); integers are native int64, with no
 plane splitting.
 
-This slice evaluates Load, RangeC, RangeV, Binop, the monotone
-``Shuffle GATHER``, ``Fold FSel``, dense-domain folds (one masked reduction
-per group id, or the fused multi-aggregate kernel for families of folds
-sharing a group key) and Partition.  On the GPU, compaction, the monotone
-gathers and the fused aggregate run as hand-written CUDA kernels
-(``kernels/``).  Every other node kind raises ``NotImplementedError``
-naming it: a plan beyond the slice fails loudly.
+The port evaluates Load, RangeC, RangeV, Binop, ``Shuffle GATHER``,
+``Shuffle SCATTER`` through unique monotone positions, ``Fold FSel``,
+dense-domain folds (one masked reduction per group id, or the fused
+multi-aggregate kernel for families of folds sharing a group key), the
+sparse sort-based group-by and Partition.  On the GPU, compaction, the
+gathers, the scatter and the fused aggregate run as hand-written CUDA
+kernels (``kernels/``).  Every other node kind raises
+``NotImplementedError`` naming it: a plan beyond the port fails loudly.
 """
 
 from __future__ import annotations
@@ -38,11 +39,12 @@ from ..catalog import ColInfo, Config
 from ..mtypes import DDate, DDecimal, DString, INT32_MAX, INT32_MIN
 from ..names import Name, name_str
 from .columnstore import ColumnStore
-from . import mergesearch
+from . import mergesearch, scan
 from .kernels import segred
 from .kernels.compact import compact_positions
 from .kernels.multiagg import AggSpec, fused_group_aggregate
-from .kernels.sorted_gather import gather_many, sorted_gather
+from .kernels.scatter import monotone_scatter
+from .kernels.sorted_gather import SMALL_TABLE, gather_many
 
 # The fused-aggregate gate: on automatically when any loaded column holds
 # at least this many rows (MPLAN2VDL_FUSED_AGG=1/0 forces it either way).
@@ -222,6 +224,9 @@ class Compiler:
         if isinstance(vx, V.Shuffle) and vx.shop == V.GATHER:
             return self._eval_gather(v, vx, dt)
 
+        if isinstance(vx, V.Shuffle) and vx.shop == V.SCATTER:
+            return self._eval_scatter(vx, dt)
+
         if isinstance(vx, V.Fold) and vx.foldop == V.FSEL:
             b = self._force(self.eval(vx.fdata))
             L = b.length
@@ -245,19 +250,21 @@ class Compiler:
             # any permutation is legal; identity preserves determinism
             return self.eval(vx.varg)
 
-        if isinstance(vx, V.Shuffle):
-            raise _outside_slice("Shuffle SCATTER")
         raise _outside_slice(type(vx).__name__)
 
     # ---------------------------------------------------------------- gather
     def _eval_gather(self, v: V.Vexp, vx: V.Shuffle, dt) -> Val:
+        """Routing: monotone positions take the monotone gather; otherwise
+        a source of at most SMALL_TABLE rows takes the small-table gather,
+        and a larger one the monotone gather's kernel again, which is right
+        for any order (the JAX engine uses XLA's gather there).  The two
+        kernels differ only past ``valid``, which ``_mask_tail`` zeroes."""
         src = self._force(self.eval(vx.shsource))
         pos = self._force(self.eval(vx.shpos))
-        if not self._monotone(vx.shpos):
-            raise _outside_slice("Shuffle GATHER with non-monotone positions")
         if src.data.dtype not in _INT_DTYPES:
             raise _outside_slice(f"Shuffle GATHER of {src.data.dtype}")
-        data = self._group_gather(v, vx, src, pos).to(dt)
+        small = not self._monotone(vx.shpos) and src.length <= SMALL_TABLE
+        data = self._group_gather(v, vx, src, pos, small).to(dt)
         # gathering from an empty source yields an empty vector
         if isinstance(src.valid, int) and src.valid > 0:
             valid = pos.valid
@@ -270,12 +277,14 @@ class Compiler:
         return Val(data=data, valid=valid, length=pos.length)
 
     def _group_gather(self, v: V.Vexp, vx: V.Shuffle, src: Val,
-                      pos: Val) -> torch.Tensor:
+                      pos: Val, small: bool) -> torch.Tensor:
         """Gather that BATCHES every other gather node sharing these
         positions (same source length, int32/int64 source) into one kernel
-        launch; results cache per member node.  ``gather_mates`` carries
-        per-member reachability sets, so a mate whose source depends on the
-        node being evaluated is never pulled in (no recursion)."""
+        launch; results cache per member node.  Mates share the positions
+        and the source length, so they take the same kernel (``small``).
+        ``gather_mates`` carries per-member reachability sets, so a mate
+        whose source depends on the node being evaluated is never pulled
+        in (no recursion)."""
         hit = self.gather_multi.get(v.skey)
         if hit is not None:
             return hit
@@ -292,13 +301,34 @@ class Compiler:
                 continue
             seen_src.add(g2.vx.shsource.skey)
             mates.append((g2, m2))
-        if not mates:
-            return sorted_gather(src.data, pos.data, pos.valid)
         outs = gather_many([src.data] + [m.data for _, m in mates],
-                           pos.data, pos.valid)
+                           pos.data, pos.valid, small=small)
         for (g2, _), o in zip(mates, outs[1:]):
             self.gather_multi[g2.skey] = o
         return outs[0]
+
+    # --------------------------------------------------------------- scatter
+    def _eval_scatter(self, vx: V.Shuffle, dt) -> Val:
+        """Scatter through unique monotone positions (FK mask deduction,
+        relational Scatter of compactions) into ``L`` slots: the monotone
+        scatter kernel.  Invalid rows map to ``L`` and are dropped."""
+        if not (vx.shpos.quant == V.UNIQUE and self._monotone(vx.shpos)):
+            raise _outside_slice("Shuffle SCATTER with non-unique or "
+                                 "non-monotone positions")
+        src = self._force(self.eval(vx.shsource))
+        pos = self._force(self.eval(vx.shpos))
+        if vx.shshape is not None:
+            L = self.eval(vx.shshape).length
+        else:
+            L = vx.shpos.info.bounds[1] + 1
+        n = min(src.length, pos.length)
+        pdt = pos.data.dtype if L <= INT32_MAX else torch.int64
+        idx = torch.arange(n, device=self.device)
+        limit = _vmin(src.valid, pos.valid, self.device)
+        p = torch.where(idx < limit, pos.data[:n].to(pdt),
+                        torch.full((), L, dtype=pdt, device=self.device))
+        out = monotone_scatter(p, src.data[:n].to(dt), L)
+        return Val(data=out, valid=L, length=L)
 
     # ---------------------------------------------------------------- binops
     def _eval_binop(self, v: V.Vexp, vx: V.Binop) -> Val:
@@ -370,21 +400,60 @@ class Compiler:
         if gmin < 0:
             raise ValueError("group ids must be non-negative")
         domain = gmax + 1
-        if domain > segred.SMALL_DOMAIN:
-            raise _outside_slice(
-                f"sparse (sort-based) group-by over a domain of {domain}")
         n = g.length
         idx = torch.arange(n, device=self.device)
         validmask = idx < g.valid
         if fmask is not None:
             m = self._force(self.eval(fmask))
             validmask = validmask & (m.data[:n] != 0)
-        ids = torch.clamp(g.data.to(torch.int64), 0, domain - 1)
-        ids_ok = torch.where(validmask, ids, _i64(domain, self.device))
-        art = {"n": n, "domain": domain, "validmask": validmask,
-               "ids_ok": ids_ok}
+        if domain <= segred.SMALL_DOMAIN:
+            ids = torch.clamp(g.data.to(torch.int64), 0, domain - 1)
+            ids_ok = torch.where(validmask, ids, _i64(domain, self.device))
+            art = {"dense": True, "n": n, "domain": domain,
+                   "ids_ok": ids_ok}
+        else:
+            art = self._sparse_artifacts(g, validmask, domain, L_out)
         self.group_cache[key] = art
         return art
+
+    def _sparse_artifacts(self, g: Val, validmask: torch.Tensor,
+                          domain: int, L_out: int) -> dict:
+        """The sort-based group-by: a stable sort of the masked ids (the
+        masked-out rows carry the sentinel ``domain`` and sort last), then
+        runs of equal ids.  ``perm`` orders each fold's payload; ``starts``
+        and ``ends`` are the first and last sorted row of each run (entries
+        past ``ngroups`` are 0); ``run_ok`` is each sorted row's run, or
+        ``L_out`` for a masked-out row.  The JAX engine's co-sorted payloads
+        (``fold_payload_map``, ``MPLAN2VDL_COSORT_CAP``) bound XLA's compile
+        time and have no counterpart: every payload gathers through
+        ``perm`` with the gather kernel, which is right for any order."""
+        dev = self.device
+        n = g.length
+        # int32 sort keys when the id domain allows (sentinel included)
+        kdt = torch.int32 if (domain < 2**31 - 1 and n < 2**31) \
+            else torch.int64
+        ids_ok = torch.where(validmask, g.data[:n].to(kdt),
+                             torch.full((), domain, dtype=kdt, device=dev))
+        sorted_ids, perm = torch.sort(ids_ok, stable=True)
+        if n < 2**31:
+            perm = perm.to(torch.int32)
+        sorted_valid = sorted_ids < domain
+        prev = torch.cat([sorted_ids[:1] - 1, sorted_ids[:-1]])
+        head = sorted_ids != prev
+        run_id = scan.cumsum_flags(head) - 1
+        run_ok = torch.where(sorted_valid, run_id, _i64(L_out, dev))
+        ngroups = (head & sorted_valid).sum()
+        nvalid = sorted_valid.sum()
+        # run starts ascend (the compaction kernel); L_out <= n
+        starts = _sel_positions(head, L_out).to(torch.int64)
+        next_start = torch.cat([starts[1:], _i64([n], dev)])
+        kidx = torch.arange(L_out, device=dev)
+        ends = torch.where(kidx + 1 < ngroups, next_start - 1,
+                           _i64(0, dev))
+        ends = torch.where(kidx + 1 == ngroups, nvalid - 1, ends)
+        return {"dense": False, "n": n, "perm": perm, "run_ok": run_ok,
+                "ngroups": ngroups, "nvalid": nvalid, "starts": starts,
+                "ends": ends}
 
     def _eval_fold(self, v: V.Vexp, vx: V.Fold) -> Val:
         fam = self.fold_map.get(v.skey)
@@ -398,7 +467,13 @@ class Compiler:
         dval = self._force(self.eval(vx.fdata))
         L_out = min(domain, g.length, dval.length)
         art = self._group_artifacts(vx.fgroups, L_out, vx.fmask)
-        data = dval.data[:art["n"]].to(dt)
+        n = art["n"]
+        if dval.length < n:
+            raise ValueError(f"fold payload of {dval.length} rows under "
+                             f"{n} group ids")
+        data = dval.data[:n].to(dt)
+        if not art["dense"]:
+            return self._eval_sparse_fold(vx, art, data, dt, L_out)
         opname = {V.FSUM: "sum", V.FMAX: "max", V.FMIN: "min",
                   V.FCHOOSE: "max"}[vx.foldop]
         agg, counts = segred.masked_group_reduce_with_counts(
@@ -409,6 +484,38 @@ class Compiler:
         # min/max over empty segments yield identity sentinels; the
         # occupancy compaction drops those slots
         out = agg[sel.long()]
+        out = _mask_tail(out.to(dt), ngroups, L_out)
+        return Val(data=out, valid=ngroups, length=L_out)
+
+    def _eval_sparse_fold(self, vx: V.Fold, art: dict, data: torch.Tensor,
+                          dt, L_out: int) -> Val:
+        """One fold over the sorted runs: a sum is the difference of an
+        int64 prefix sum at run ends, choose reads run starts, and min/max
+        reduce each run with ``scatter_reduce`` over the run ids."""
+        dev = self.device
+        n, ngroups = art["n"], art["ngroups"]
+        kmask = torch.arange(L_out, device=dev) < ngroups
+        sd = _mask_tail(gather_many([data], art["perm"], n)[0],
+                        art["nvalid"], n)
+        zero = _i64(0, dev)
+        starts = torch.clamp(art["starts"], 0, n - 1)
+        if vx.foldop == V.FSUM:
+            cs = torch.cumsum(sd.to(torch.int64), 0)
+            at_end = cs[torch.clamp(art["ends"], 0, n - 1)]
+            before = torch.where(starts > 0,
+                                 cs[torch.clamp(starts - 1, 0, n - 1)], zero)
+            out = torch.where(kmask, at_end - before, zero)
+        elif vx.foldop == V.FCHOOSE:
+            out = torch.where(kmask, sd[starts].to(torch.int64), zero)
+        else:  # FMIN / FMAX
+            info = torch.iinfo(torch.int64)
+            ident, how = ((info.max, "amin") if vx.foldop == V.FMIN
+                          else (info.min, "amax"))
+            red = torch.full((L_out + 1,), ident, dtype=torch.int64,
+                             device=dev)
+            red.scatter_reduce_(0, torch.clamp(art["run_ok"], 0, L_out),
+                                sd.to(torch.int64), how)
+            out = torch.where(kmask, red[:L_out], zero)
         out = _mask_tail(out.to(dt), ngroups, L_out)
         return Val(data=out, valid=ngroups, length=L_out)
 

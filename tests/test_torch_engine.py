@@ -1,11 +1,13 @@
 """The port's engine against the JAX engine and the oracles, on the CPU.
 
-The three plans of the port's first slice (TPC-H Q6, Q1 and a lineitem
-scan-filter-project, defined once in chip_smoke.py) run through the port
+The port's plans (TPC-H Q6, Q1, a lineitem scan-filter-project, and the
+FK-join path: Q3 in its no-order form, Q5 and a sparse group-by over
+l_orderkey, all defined once in chip_smoke.py) run through the port
 (``device="cpu"``), through the JAX ``CompiledQuery`` on the CPU and
-through the oracles, at two seeds; Q1 runs with the fused multi-aggregate
-path forced on and off on both engines.  Every comparison is exact: the
-engine is integer throughout.
+through the oracles (the port's ``oracle/tpch``, numpy mask-and-take, and
+chip_smoke's numpy join oracles), at two seeds; Q1 runs with the fused
+multi-aggregate path forced on and off on both engines.  Every comparison
+is exact: the engine is integer throughout.
 """
 
 import numpy as np
@@ -21,8 +23,13 @@ from mplan2vdl_tpu_torch.oracle import tpch
 SF = 0.01
 SEEDS = (7, 11)
 PLANS = {"q6": chip_smoke.PLAN_Q6, "q1": chip_smoke.PLAN_Q1,
-         "filter_project": chip_smoke.PLAN_FILTER_PROJECT}
-RUNS = [("q6", None), ("q1", "1"), ("q1", "0"), ("filter_project", None)]
+         "filter_project": chip_smoke.PLAN_FILTER_PROJECT,
+         "q3": chip_smoke.PLAN_Q3, "q5": chip_smoke.PLAN_Q5,
+         "sparse_groupby": chip_smoke.PLAN_SPARSE_GROUPBY}
+JOIN_ORACLES = {"q3": chip_smoke.oracle_q3, "q5": chip_smoke.oracle_q5,
+                "sparse_groupby": chip_smoke.oracle_sparse_groupby}
+RUNS = [("q6", None), ("q1", "1"), ("q1", "0"), ("filter_project", None),
+        ("q3", None), ("q5", None), ("sparse_groupby", None)]
 
 
 @pytest.fixture(scope="module")
@@ -37,6 +44,8 @@ def stores():
 
 
 def _oracle(store, plan):
+    if plan in JOIN_ORACLES:
+        return JOIN_ORACLES[plan](store)
     if plan == "q6":
         return [tpch.q6(store)["revenue"]]
     if plan == "q1":
@@ -75,6 +84,40 @@ def test_slice_matches_jax_and_oracle(stores, monkeypatch, seed, plan,
         assert g.dtype == w.dtype
         np.testing.assert_array_equal(g, w)  # row for row, in order
     assert _rows(got.columns) == _rows(_oracle(ts, plan))
+
+
+@pytest.mark.parametrize("small_table", [65536, 100])
+def test_join_routing(stores, monkeypatch, small_table):
+    """Q5's kernels and routing: its scatters take the monotone scatter;
+    non-monotone gathers from tables of at most SMALL_TABLE rows take the
+    small-table gather and larger ones the monotone gather's kernel.  With
+    the threshold moved down to 100 rows the customer and orders gathers
+    change kernel and the rows stay the oracle's."""
+    ts, tcfg, _, _ = stores[SEEDS[0]]
+    calls = {"scatter": 0, "small": [], "large": []}
+    gather_many, scatter = tlower.gather_many, tlower.monotone_scatter
+
+    def spy_gather(srcs, pos, valid, small=False):
+        calls["small" if small else "large"].append(len(srcs[0]))
+        return gather_many(srcs, pos, valid, small=small)
+
+    def spy_scatter(pos, src, L):
+        calls["scatter"] += 1
+        return scatter(pos, src, L)
+
+    monkeypatch.setattr(tlower, "gather_many", spy_gather)
+    monkeypatch.setattr(tlower, "monotone_scatter", spy_scatter)
+    monkeypatch.setattr(tlower, "SMALL_TABLE", small_table)
+    got = tlower.compile_plan_text(chip_smoke.PLAN_Q5, tcfg, ts,
+                                   device="cpu")()
+    assert _rows(got.columns) == _rows(chip_smoke.oracle_q5(ts))
+    assert calls["scatter"] == 3
+    assert calls["small"] and max(calls["small"]) <= small_table
+    # nation (25 rows) and region (5 rows) gathers stay small either way
+    assert 25 in calls["small"]
+    n_cust = len(ts.columns[("customer", "c_custkey")])
+    assert (n_cust in calls["small"]) == (n_cust <= small_table)
+    assert (n_cust in calls["large"]) == (n_cust > small_table)
 
 
 def test_fused_gate_default_threshold(stores, monkeypatch):

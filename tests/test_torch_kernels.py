@@ -3,8 +3,8 @@
 Each plain version (what a kernel wrapper runs for a CPU tensor) gets the
 same numpy inputs as the JAX function, made from a seed, and must agree
 exactly (tolerance 0: every value is an integer).  The case lists are those
-of tests/test_compact.py, tests/test_sorted_gather.py and
-tests/test_multiagg.py.  The JAX side runs as its own tests run it: the
+of tests/test_compact.py, tests/test_sorted_gather.py,
+tests/test_scatter_kernel.py and tests/test_multiagg.py.  The JAX side runs as its own tests run it: the
 Pallas kernels in interpret mode.  The CUDA kernels themselves run only on
 the GPU, where chip_smoke.py holds them against these plain versions.
 """
@@ -17,10 +17,12 @@ import jax.numpy as jnp
 
 from mplan2vdl_tpu.engine.kernels import compact as jcompact
 from mplan2vdl_tpu.engine.kernels import multiagg as jmultiagg
+from mplan2vdl_tpu.engine.kernels import scatter as jscatter
 from mplan2vdl_tpu.engine.kernels import segred as jsegred
 from mplan2vdl_tpu.engine.kernels import sorted_gather as jgather
 from mplan2vdl_tpu_torch.engine.kernels import compact as tcompact
 from mplan2vdl_tpu_torch.engine.kernels import multiagg as tmultiagg
+from mplan2vdl_tpu_torch.engine.kernels import scatter as tscatter
 from mplan2vdl_tpu_torch.engine.kernels import segred as tsegred
 from mplan2vdl_tpu_torch.engine.kernels import sorted_gather as tgather
 
@@ -136,6 +138,139 @@ def test_gather_device_valid_and_tail():
     for valid in (3, torch.tensor(3)):
         out = tgather.sorted_gather(src, pos, valid)
         assert out.tolist() == [3, 15, 27, 27, 27]
+
+
+# ------------------------------------------------------ small-table gather
+def _small_cases():
+    """(id, sources, positions) over tests/test_sorted_gather.py's
+    small-table cases, plus k = 3 with mixed dtypes and positions out of
+    range (both kernels clip them)."""
+    out = []
+    rng = np.random.default_rng(8)
+    for n, m in [(25, 5000), (7000, 20000), (60000, 8192)]:
+        src = rng.integers(-(1 << 30), 1 << 30, n).astype(np.int32)
+        pos = rng.integers(0, n, m).astype(np.int32)  # arbitrary order
+        out.append((f"int32-{n}x{m}", [src], pos))
+    rng = np.random.default_rng(9)
+    n, m = 4000, 9000
+    src = rng.integers(-(1 << 60), 1 << 60, n).astype(np.int64)
+    out.append(("int64", [src], rng.integers(0, n, m).astype(np.int32)))
+    rng = np.random.default_rng(10)
+    n, m = 25, 6000
+    srcs = [rng.integers(-(1 << 30), 1 << 30, n).astype(np.int32),
+            rng.integers(-(1 << 60), 1 << 60, n).astype(np.int64),
+            rng.integers(0, 100, n).astype(np.int32)]
+    out.append(("k3-mixed", srcs, rng.integers(0, n, m).astype(np.int32)))
+    pos = rng.integers(-50, n + 50, m).astype(np.int32)
+    out.append(("k3-out-of-range", srcs, pos))
+    return out
+
+
+@pytest.mark.parametrize("srcs,pos", [c[1:] for c in _small_cases()],
+                         ids=[c[0] for c in _small_cases()])
+def test_small_gather_matches_jax(interpret_mode, srcs, pos):
+    jpos = jnp.asarray(pos)
+    m = len(pos)
+    if len(srcs) == 1:
+        want = [np.asarray(jgather.small_table_gather(jnp.asarray(srcs[0]),
+                                                      jpos, m))]
+        got = [tgather.small_table_gather(torch.from_numpy(srcs[0]),
+                                          torch.from_numpy(pos), m)]
+    else:
+        want = [np.asarray(w) for w in jgather.gather_many(
+            [jnp.asarray(s) for s in srcs], jpos, m, small=True)]
+        got = tgather.gather_many([torch.from_numpy(s) for s in srcs],
+                                  torch.from_numpy(pos), m, small=True)
+    for g, w, s in zip(got, want, srcs):
+        assert g.dtype == torch.from_numpy(s).dtype
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+def test_small_gather_clips_without_tail_repeat():
+    """Unlike the monotone gather, rows past ``valid`` are not redirected
+    to the last valid position: every position is only clipped."""
+    src = torch.arange(10, dtype=torch.int32) * 3
+    pos = torch.tensor([4, -2, 99, 1, 0], dtype=torch.int64)
+    assert tgather.small_table_gather(src, pos, 2).tolist() == [12, 0, 27,
+                                                                3, 0]
+    with pytest.raises(ValueError, match="small-table"):
+        tgather.small_table_gather(
+            torch.zeros(tgather.SMALL_TABLE + 1, dtype=torch.int32), pos, 5)
+
+
+# -------------------------------------------------------- monotone scatter
+def _scatter_cases():
+    """(id, pos, src, L) over the cases of tests/test_scatter_kernel.py."""
+    out = []
+    for seed in (0, 1):
+        for density in (0.02, 0.3, 0.9, 1.0):
+            rng = np.random.default_rng(seed)
+            L = int(rng.integers(2000, 40000))
+            pos = np.flatnonzero(rng.random(L) < density).astype(np.int32)
+            src = rng.integers(1, 2**20, len(pos)).astype(np.int32)
+            out.append((f"random-{density}-{seed}", pos, src, L))
+    L = 3 * 8192
+    spreads = [
+        np.array([0, 1], np.int32),
+        np.arange(100, dtype=np.int32) * 200,
+        np.concatenate([np.arange(50), L - 50 + np.arange(50)]
+                       ).astype(np.int32),
+        np.array([8191, 8192], np.int32),
+        np.array([8190, 8191, 8192, 8193, 16383, 16384], np.int32),
+    ]
+    rng = np.random.default_rng(9)
+    for i, pos in enumerate(spreads):
+        src = rng.integers(1, 1000, len(pos)).astype(np.int32)
+        out.append((f"spread-{i}", pos, src, L))
+    out.append(("lsb-first-counterexample", np.array([1, 3], np.int32),
+                np.array([7, 9], np.int32), L))
+    out.append(("invalid-tail", np.array([5, 17, 9000, 10000, 10000, 10000],
+                                         np.int32),
+                np.arange(1, 7, dtype=np.int32), 10000))
+    for seed in (0, 1, 2):
+        rng = np.random.default_rng(seed)
+        L = int(rng.integers(8192 + 1, 8192 * 4 - 1))
+        n_valid = int(rng.integers(100, 4000))
+        pos_valid = np.sort(rng.choice(L, n_valid, replace=False))
+        n_invalid = int(rng.integers(2, 12000))
+        pos = np.concatenate([pos_valid, np.full(n_invalid, L)]
+                             ).astype(np.int32)
+        src = rng.integers(1, 2**20, len(pos)).astype(np.int32)
+        out.append((f"invalid-cluster-at-L-{seed}", pos, src, L))
+    out.append(("valid-past-L", np.array([5, 9000, 10500, 12000, 16383,
+                                          16385], np.int32),
+                np.arange(1, 7, dtype=np.int32), 10000))
+    rng = np.random.default_rng(3)
+    L = 9000
+    pos = np.sort(rng.choice(L, 500, replace=False)).astype(np.int32)
+    out.append(("int64", pos, rng.integers(-2**60, 2**60, 500)
+                .astype(np.int64), L))
+    L = 16384
+    out.append(("identity", np.arange(L, dtype=np.int32),
+                np.arange(L, dtype=np.int32) * 3 + 1, L))
+    return out
+
+
+@pytest.mark.parametrize("pos,src,L", [c[1:] for c in _scatter_cases()],
+                         ids=[c[0] for c in _scatter_cases()])
+def test_scatter_matches_jax(interpret_mode, pos, src, L):
+    want = np.asarray(jscatter.monotone_scatter(jnp.asarray(pos),
+                                                jnp.asarray(src), L))
+    tpos, tsrc = torch.from_numpy(pos), torch.from_numpy(src)
+    got = tscatter.monotone_scatter(tpos, tsrc, L)
+    assert got.dtype == tsrc.dtype and got.shape == (L,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    plain = tscatter.monotone_scatter_plain(tpos.long(), tsrc, L)
+    np.testing.assert_array_equal(plain.numpy(), want)
+
+
+def test_scatter_rejects_bad_input():
+    p = torch.arange(4, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        tscatter.monotone_scatter(p, torch.zeros(4, dtype=torch.float32), 4)
+    with pytest.raises(ValueError):
+        tscatter.monotone_scatter(p, torch.zeros(3, dtype=torch.int32), 4)
+    assert tscatter.monotone_scatter(p[:0], p[:0], 3).tolist() == [0, 0, 0]
 
 
 # ------------------------------------------------------- fused aggregate

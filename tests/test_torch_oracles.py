@@ -1,0 +1,112 @@
+"""chip_smoke.py's numpy join oracles against SQLite, on the CPU.
+
+The oracles decide whether the port's FK-join plans are right on the GPU,
+so they are held here against an independent SQL engine.  The store's
+columns go into an in-memory SQLite database the way
+tests/test_sqlite_oracle.py builds it (dates as ISO-8601 text; the
+dictionary columns the queries filter or group on as their strings), and
+the queries are written as real SQL.  Every comparison is exact.
+"""
+
+import datetime
+import sqlite3
+
+import numpy as np
+import pytest
+
+import chip_smoke
+from mplan2vdl_tpu_torch.engine import datagen
+
+DATE_COLS = {"l_shipdate", "l_commitdate", "l_receiptdate", "o_orderdate"}
+TEXT_COLS = {"c_mktsegment", "n_name", "r_name"}
+SEEDS = (13, 17)
+
+
+def _day_sql(col):
+    return f"CAST(julianday({col}) - julianday('0000-01-01') AS INT)"
+
+
+@pytest.fixture(scope="module", params=SEEDS)
+def store_db(request):
+    store = datagen.generate(sf=0.01, seed=request.param)
+    db = sqlite3.connect(":memory:")
+    tables = {}
+    for (tab, col), data in store.columns.items():
+        if not tab.startswith("%") and not col.startswith("%"):
+            tables.setdefault(tab, []).append((col, data))
+    for tab, cols in tables.items():
+        names, arrays = [], []
+        for col, data in cols:
+            if col in DATE_COLS:
+                names.append(f"{col} TEXT")
+                arrays.append([datetime.date.fromordinal(int(v) - 365)
+                               .isoformat() for v in data])
+            elif col in TEXT_COLS:
+                dec = store.decoders[(tab, col)]
+                names.append(f"{col} TEXT")
+                arrays.append([dec[int(v)] for v in data])
+            else:
+                names.append(f"{col} INTEGER")
+                arrays.append([int(v) for v in data])
+        db.execute(f"CREATE TABLE {tab} ({', '.join(names)})")
+        ph = ", ".join("?" * len(names))
+        db.executemany(f"INSERT INTO {tab} VALUES ({ph})", zip(*arrays))
+    for tab, key in (("customer", "c_custkey"), ("orders", "o_orderkey"),
+                     ("supplier", "s_suppkey"), ("nation", "n_nationkey"),
+                     ("lineitem", "l_orderkey")):
+        db.execute(f"CREATE INDEX {tab}_{key} ON {tab} ({key})")
+    db.commit()
+    return store, db
+
+
+def _decode(store, tab, col, codes):
+    dec = store.decoders[(tab, col)]
+    return [dec[int(c)] for c in codes]
+
+
+def test_q3_oracle_matches_sqlite(store_db):
+    store, db = store_db
+    key, revenue, date, prio = chip_smoke.oracle_q3(store)
+    got = sorted(zip(*[np.asarray(c, np.int64).tolist()
+                       for c in (key, revenue, date, prio)]))
+    want = sorted(tuple(r) for r in db.execute(f"""
+        SELECT l_orderkey, SUM(l_extendedprice * (100 - l_discount)),
+               {_day_sql("o_orderdate")}, o_shippriority
+        FROM customer, orders, lineitem
+        WHERE c_mktsegment = 'BUILDING'
+          AND c_custkey = o_custkey AND l_orderkey = o_orderkey
+          AND o_orderdate < '1995-03-15' AND l_shipdate > '1995-03-15'
+        GROUP BY l_orderkey, o_orderdate, o_shippriority
+    """))
+    assert got and got == want
+
+
+def test_q5_oracle_matches_sqlite(store_db):
+    store, db = store_db
+    name, revenue = chip_smoke.oracle_q5(store)
+    got = sorted(zip(_decode(store, "nation", "n_name", name),
+                     np.asarray(revenue, np.int64).tolist()))
+    want = sorted(tuple(r) for r in db.execute("""
+        SELECT n_name, SUM(l_extendedprice * (100 - l_discount))
+        FROM customer, orders, lineitem, supplier, nation, region
+        WHERE c_custkey = o_custkey AND l_orderkey = o_orderkey
+          AND l_suppkey = s_suppkey AND c_nationkey = s_nationkey
+          AND s_nationkey = n_nationkey AND n_regionkey = r_regionkey
+          AND r_name = 'ASIA'
+          AND o_orderdate >= '1994-01-01' AND o_orderdate < '1995-01-01'
+        GROUP BY n_name
+    """))
+    assert got and got == want
+
+
+def test_sparse_groupby_oracle_matches_sqlite(store_db):
+    store, db = store_db
+    cols = chip_smoke.oracle_sparse_groupby(store)
+    got = sorted(zip(*[np.asarray(c, np.int64).tolist() for c in cols]))
+    want = sorted(tuple(r) for r in db.execute(f"""
+        SELECT l_orderkey, SUM(l_quantity), MIN({_day_sql("l_shipdate")}),
+               MAX(l_quantity), COUNT(*)
+        FROM lineitem WHERE l_shipdate >= '1995-01-01'
+        GROUP BY l_orderkey
+    """))
+    assert got and got == want
