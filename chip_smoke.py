@@ -8,14 +8,23 @@ Phases (any failure ends the run with a nonzero exit; nothing is caught):
   2. builds the CUDA kernels from ``mplan2vdl_tpu_torch/engine/kernels/csrc``;
   3. holds each kernel exactly equal to its plain PyTorch version on the
      card, at the shapes of a TPC-H store of the chosen scale (lineitem
-     rows, orders slots, dimension tables), and times kernel, plain version
-     and library yardstick with CUDA events;
+     rows, orders slots, dimension tables; the tensor-core aggregate also
+     with negative group ids, an odd row count, values near the bits bound,
+     37 groups and one block over every row; the digit rank at 4 and 8
+     bits over random, all-equal and ascending keys), and times kernel,
+     plain version and library yardstick with CUDA events;
   4. drives the port end to end through ``plan_to_vexps`` +
      ``CompiledQuery`` on ``cuda``: TPC-H Q6, Q1 (fused by the automatic
-     gate, then with MPLAN2VDL_FUSED_AGG=0), a lineitem scan-filter-project,
-     then the FK-join path: TPC-H Q3 (no-order form), Q5 and a sparse
-     group-by over l_orderkey.  Each run is row-exact against its oracle,
-     and the kernels' launch counters are read around it.
+     gate, with its sums on the tensor cores by MPLAN2VDL_MXU_AGG=1, and
+     with MPLAN2VDL_FUSED_AGG=0), a lineitem scan-filter-project, then the
+     FK-join path: TPC-H Q3 (no-order form), Q5 and a sparse group-by over
+     l_orderkey.  Each run is row-exact against its oracle, and the engine
+     kernels' launch counters are read around it;
+  5. the probes: ``tools.probe_kernels`` (every pattern probe OK, each
+     kernel equal to its plain version, timed) and ``tools.probe_radix``
+     at its default sizes and the lineitem row count rounded up to a
+     block, with the launch counters of the two probe kernels read around
+     them.
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits nonzero and prints no result.  The plan texts and the
@@ -158,15 +167,29 @@ KERNELS = {
         source="mplan2vdl_tpu_torch/engine/kernels/csrc/small_gather.cu",
         replaces="mplan2vdl_tpu/engine/kernels/sorted_gather.py:243"
                  " + mplan2vdl_tpu/engine/kernels/sorted_gather.py:507"),
+    "multiagg_mxu": dict(
+        source="mplan2vdl_tpu_torch/engine/kernels/csrc/multiagg_mxu.cu",
+        replaces="mplan2vdl_tpu/engine/kernels/multiagg_mxu.py:196"),
+    "radix_rank": dict(
+        source="mplan2vdl_tpu_torch/engine/kernels/csrc/radix_rank.cu",
+        replaces="tools/probe_radix.py:65"),
+    "probes": dict(source="mplan2vdl_tpu_torch/engine/kernels/csrc/probes.cu",
+                   replaces="tools/probe_mosaic.py:39"),
 }
 
-# the wrapper module and counter attribute of each kernel's launches
+# the wrapper module and counter attribute of each kernel's launches: the
+# engine kernels, counted over the query runs ...
 COUNTERS = {"compact": ("compact", "launches"),
             "gather": ("sorted_gather", "launches"),
             "multiagg": ("multiagg", "launches"),
             "scatter": ("scatter", "launches"),
-            "small_gather": ("sorted_gather", "small_launches")}
+            "small_gather": ("sorted_gather", "small_launches"),
+            "multiagg_mxu": ("multiagg_mxu", "launches")}
+# ... and the probe kernels, counted over the probe tools' runs
+PROBE_COUNTERS = {"radix_rank": ("radix_rank", "launches"),
+                  "probes": ("probes", "launches")}
 
+Q1_MXU = "Q1 fused MXU (MPLAN2VDL_MXU_AGG=1)"
 Q3_COLUMNS = ["l_orderkey", "revenue", "o_orderdate", "o_shippriority"]
 Q5_COLUMNS = ["n_name", "revenue"]
 SPARSE_COLUMNS = ["l_orderkey", "sum_qty", "first_ship", "max_qty", "n"]
@@ -554,6 +577,117 @@ class Smoke:
 
         self.scatter_kernel()
         self.small_gather_kernel()
+        self.mxu_kernel(fam, cols, gid)
+        self.radix_kernel()
+
+    def mxu_kernel(self, fam, cols, gid):
+        """The tensor-core aggregate on Q1's sum specs (the family's sums
+        and the appended count, as the engine routes them), and its corner
+        cases; multiagg.cu timed on the same specs beside it."""
+        torch = self.torch
+        from mplan2vdl_tpu_torch.engine.kernels import multiagg
+        from mplan2vdl_tpu_torch.engine.kernels import multiagg_mxu as mx
+
+        Spec = multiagg.AggSpec
+        n = gid.shape[0]
+        specs = [s for s in fam.specs if s.op == "sum"] + [
+            Spec(base=None, bits=1)]
+        used = {i for s in specs for i in
+                ([] if s.base is None else [s.base])
+                + [f[2] for f in s.factors]}
+        rows = torch.arange(n, device=self.dev)
+
+        def x_case(what, cs, g, sp, groups, **kw):
+            got = mx.fused_group_aggregate_mxu(cs, g, sp, groups, **kw)
+            want = mx.fused_group_aggregate_mxu_plain(cs, g, sp, groups)
+            e = self.equal(f"multiagg_mxu {what}", got, want)
+            self.max_err["multiagg_mxu"] = max(self.max_err["multiagg_mxu"],
+                                               e)
+
+        x_case(f"Q1 {len(specs)} sum specs n={n}", cols, gid, specs,
+               fam.domain)
+        gneg = gid.clone()
+        gneg[::7] = -5
+        x_case("negative gid rows", cols, gneg, specs, fam.domain)
+        odd = min(1_000_003, n)
+        x_case(f"n={odd} (not a step multiple)", [c[:odd] for c in cols],
+               gid[:odd], specs, fam.domain)
+        g37 = (rows * 2654435761 % 37).to(torch.int32)
+        x_case("37 groups (several group tiles)", cols, g37, specs, 37)
+        # as tests/test_multiagg_mxu.py: base 2^31-1 times 1 + 32766, bits
+        # 46; 100,003 rows keep every total below 2^63
+        nb = min(100_003, n)
+        big = torch.full((nb,), 2**31 - 1, dtype=torch.int32, device=self.dev)
+        fac = torch.full((nb,), 32766, dtype=torch.int32, device=self.dev)
+        x_case("values near the bits bound", [big, fac],
+               (rows[:nb] % 3).to(torch.int32),
+               [Spec(base=0, bits=31),
+                Spec(base=0, factors=((1, 1, 1),), bits=46)], 3)
+        # one block over every row, every byte plane 255: without the int32
+        # flush a cell would pass 2^31 after 2^23 rows
+        full = [torch.full((n,), v, dtype=torch.int32, device=self.dev)
+                for v in (2**16 - 1, 2**16, 2**24 - 1)]
+        ff = [Spec(base=None, factors=((255, 0, 0),), bits=8),
+              Spec(base=0, bits=16),
+              Spec(base=2, bits=24),
+              Spec(base=0, factors=((1, 1, 1),), bits=32)]  # 2^32 - 1
+        x_case(f"one block over {n} rows, every plane 255", full,
+               torch.zeros(n, dtype=torch.int32, device=self.dev), ff, 1,
+               max_blocks=1)
+
+        mx.launches = 0
+        ms = self.cuda_ms(lambda: mx.fused_group_aggregate_mxu(
+            cols, gid, specs, fam.domain), REPS)
+        timed_launches = mx.launches
+        plain_ms = self.cuda_ms(lambda: mx.fused_group_aggregate_mxu_plain(
+            cols, gid, specs, fam.domain), 2)
+        nbytes = 4 * (len(used) + 1) * n
+        shape = (f"{len(specs)} Q1 sum specs x {fam.domain} groups over "
+                 f"{len(used)} int32[{n}] columns + int32 gid")
+        self.kernel_time("multiagg_mxu", shape, ms, plain_ms, None,
+                         _bound_ms(nbytes), timed_launches)
+        ms = self.cuda_ms(lambda: multiagg.fused_group_aggregate(
+            cols, gid, specs, fam.domain), REPS)
+        self.kernel_time("multiagg on the same sum specs", shape, ms, None,
+                         None, _bound_ms(nbytes), None)
+
+    def radix_kernel(self):
+        """The digit rank over the lineitem row count rounded up to a block
+        of random 24-bit keys (the sparse group-by's key count), and over
+        all-equal and ascending keys; torch.sort timed beside it."""
+        torch = self.torch
+        from mplan2vdl_tpu_torch.engine.kernels import radix_rank as rr
+
+        n = -(-self.n // rr.BLOCK) * rr.BLOCK
+        gen = torch.Generator(device=self.dev).manual_seed(self.args.seed + 2)
+        keys = torch.randint(0, 1 << 24, (n,), generator=gen,
+                             device=self.dev, dtype=torch.int32)
+        sets = (("random 24-bit", keys),
+                ("all-equal", torch.full((n,), 0xABCDEF, dtype=torch.int32,
+                                         device=self.dev)),
+                ("ascending", torch.arange(n, dtype=torch.int32,
+                                           device=self.dev)))
+        for nbits in (4, 8):
+            for what, x in sets:
+                got = rr.radix_rank(x, nbits)
+                e = self.equal(f"radix_rank nbits={nbits} {what} keys n={n}",
+                               got, rr.radix_rank_plain(x, nbits))
+                self.max_err["radix_rank"] = max(self.max_err["radix_rank"],
+                                                 e)
+        del sets
+        for nbits, name in ((4, "radix_rank nbits=4"), (8, "radix_rank")):
+            rr.launches = 0
+            ms = self.cuda_ms(lambda: rr.radix_rank(keys, nbits), REPS)
+            timed_launches = rr.launches
+            plain_ms = self.cuda_ms(lambda: rr.radix_rank_plain(keys, nbits),
+                                    1)
+            self.kernel_time(name, f"int32[{n}] random 24-bit keys, "
+                             f"{1 << nbits} buckets", ms, plain_ms, None,
+                             _bound_ms(8 * n), timed_launches)
+        ms = self.cuda_ms(lambda: torch.sort(keys, stable=True), REPS)
+        self.kernel_time("torch.sort(stable=True) on the same keys",
+                         f"int32[{n}] -> values + int64 indices", ms, None,
+                         None, _bound_ms(n * (4 + 4 + 8)), None)
 
     def scatter_kernel(self):
         """The monotone scatter into the slots of an orders-sized table,
@@ -745,12 +879,15 @@ class Smoke:
 
         q1_auto = "Q1 fused (auto gate)" if fused_agg_on(
             st, [("lineitem", "l_quantity")]) else "Q1 (auto gate: unfused)"
-        # (name, plan, MPLAN2VDL_FUSED_AGG, check, kernels it must launch)
+        # (name, plan, MPLAN2VDL_FUSED_AGG, check, kernels it must launch);
+        # MPLAN2VDL_MXU_AGG is set for the Q1_MXU run only
         runs = [("Q6", PLAN_Q6, None, check_q6, ()),
                 (q1_auto, PLAN_Q1, None, check_q1, ())]
         if not q1_auto.startswith("Q1 fused"):
             runs.append(("Q1 fused (forced)", PLAN_Q1, "1", check_q1, ()))
-        runs += [("Q1 unfused (MPLAN2VDL_FUSED_AGG=0)", PLAN_Q1, "0",
+        runs += [(Q1_MXU, PLAN_Q1, "1", check_q1,
+                  ("multiagg_mxu", "multiagg")),
+                 ("Q1 unfused (MPLAN2VDL_FUSED_AGG=0)", PLAN_Q1, "0",
                   check_q1, ()),
                  ("filter-project", PLAN_FILTER_PROJECT, None, check_fp, ()),
                  ("Q3", PLAN_Q3, None, check_rows(Q3_COLUMNS, oracle_q3),
@@ -761,6 +898,7 @@ class Smoke:
                   check_rows(SPARSE_COLUMNS, oracle_sparse_groupby),
                   ("compact", "gather"))]
         total = {k: 0 for k in counters}
+        os.environ.pop("MPLAN2VDL_MXU_AGG", None)
         for name, plan, fused, check, must in runs:
             if fused is None:
                 os.environ.pop("MPLAN2VDL_FUSED_AGG", None)
@@ -769,6 +907,8 @@ class Smoke:
             cq = CompiledQuery(cfg, plan_to_vexps(plan, cfg), st,
                                device="cuda")
             os.environ.pop("MPLAN2VDL_FUSED_AGG", None)
+            if name == Q1_MXU:  # read when the family is evaluated
+                os.environ["MPLAN2VDL_MXU_AGG"] = "1"
             t0 = time.perf_counter()
             cq.device_args()
             self.sync()
@@ -784,6 +924,13 @@ class Smoke:
             idle = [k for k in must if launches[k] == 0]
             if idle:
                 raise AssertionError(f"{name} launched no {idle} kernel")
+            if name == Q1_MXU and (launches["multiagg_mxu"], launches[
+                    "multiagg"]) != (1, 1):
+                raise AssertionError(f"{name}: {launches}, not one launch "
+                                     "each of multiagg_mxu and multiagg")
+            if name != Q1_MXU and launches["multiagg_mxu"]:
+                raise AssertionError(f"{name} launched multiagg_mxu with "
+                                     "MPLAN2VDL_MXU_AGG unset")
             self.torch.cuda.reset_peak_memory_stats()
             times = []
             for _ in range(5):
@@ -806,6 +953,7 @@ class Smoke:
                 rec["profile"] = self.profile(name, cq)
             self.records["queries"].append(rec)
             print(json.dumps(rec), flush=True)
+            os.environ.pop("MPLAN2VDL_MXU_AGG", None)
             del cq
         self.launches = total
         for k, v in total.items():
@@ -813,6 +961,56 @@ class Smoke:
                 raise AssertionError(f"kernel {k} was not launched by the "
                                      "queries")
         print(json.dumps({"main_path_launches": total}), flush=True)
+
+    def probe_phase(self):
+        """Runs the two probe tools on the card with their launch counters
+        reset around them; holds every pattern kernel exactly equal to its
+        plain version and times both."""
+        import importlib
+
+        from mplan2vdl_tpu_torch.engine.kernels import probes as P
+        from mplan2vdl_tpu_torch.engine.kernels import radix_rank as rr
+        from mplan2vdl_tpu_torch.tools import probe_kernels, probe_radix
+
+        counters = {
+            k: (importlib.import_module(
+                f"mplan2vdl_tpu_torch.engine.kernels.{mod}"), attr)
+            for k, (mod, attr) in PROBE_COUNTERS.items()}
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        rows = probe_kernels.run(self.dev)
+        n = -(-self.n // rr.BLOCK) * rr.BLOCK
+        sizes = list(probe_radix.DEFAULT_SIZES) + [n]
+        self.records["probe_radix"] = probe_radix.run(sizes, dev=self.dev)
+        self.probe_launches = {k: getattr(mod, attr)
+                               for k, (mod, attr) in counters.items()}
+        print(json.dumps({"probe_launches": self.probe_launches}),
+              flush=True)
+        bad = [name for name, ok in rows if not ok]
+        if bad:
+            raise AssertionError(f"kernel probes wrong: {bad}")
+        for k, v in self.probe_launches.items():
+            if v == 0:
+                raise AssertionError(f"kernel {k} was not launched by the "
+                                     "probe tools")
+
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+        P.launches = 0
+        for p in probe_kernels.make_probes(self.dev):
+            got = p.run(P)
+            e = self.equal(f"probes {p.name}", got, p.run(P.PLAIN))
+            self.max_err["probes"] = max(self.max_err["probes"], e)
+            rec = {"probe": p.name,
+                   "ms": self.cuda_ms(lambda: p.run(P), REPS),
+                   "plain_ms": self.cuda_ms(lambda: p.run(P.PLAIN), REPS),
+                   "bound_ms": _bound_ms(p.nbytes(got))}
+            for k in tot:
+                tot[k] += rec[k]
+            self.records.setdefault("probe_times", []).append(rec)
+            print(json.dumps(rec), flush=True)
+        self.kernel_time("probes", "the 15 probe runs (12 probes and 3 "
+                         "tensor-core variants), summed", tot["ms"],
+                         tot["plain_ms"], None, tot["bound_ms"], P.launches)
 
     def profile(self, name, cq):
         """One warm call under torch.profiler: device (kernel) time beside
@@ -849,12 +1047,13 @@ class Smoke:
 
     def summary(self):
         out = []
+        launches = {**self.launches, **self.probe_launches}
         for name, meta in KERNELS.items():
             t = self.timed[name]
             out.append({"name": name, "route": "cuda",
                         "source": meta["source"],
                         "replaces": meta["replaces"],
-                        "launches": self.launches[name],
+                        "launches": launches[name],
                         "max_abs_err": self.max_err[name],
                         "ms": t["ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"], "bound_by": "bytes",
@@ -888,6 +1087,7 @@ def main(argv=None) -> int:
     s.store()
     s.kernel_phase()
     s.query_phase()
+    s.probe_phase()
     summary = s.summary()
     s.records["summary"] = summary
     s.records["wall_s"] = time.perf_counter() - t0

@@ -24,8 +24,8 @@ import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
-SOURCES = ("compact.cu", "gather.cu", "multiagg.cu", "scatter.cu",
-           "small_gather.cu")
+SOURCES = ("compact.cu", "gather.cu", "multiagg.cu", "multiagg_mxu.cu",
+           "probes.cu", "radix_rank.cu", "scatter.cu", "small_gather.cu")
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(_HERE)))
 BUILD_DIR = os.path.join(_REPO, "build", "mplan2vdl_tpu_torch")
 LIB_PATH = os.path.join(BUILD_DIR, "libkernels.so")
@@ -46,6 +46,14 @@ _SIGNATURES = {
     "m2v_gather": ([_P, _P, _P, _I, _P, _I, _L, _L, _L, _P, _P], _I),
     "m2v_gather_max_sources": ([], _I),
     "m2v_multiagg": ([_P, _I, _P, _L, _P, _I, _I, _I, _P, _P], _I),
+    "m2v_multiagg_mxu": ([_P, _I, _P, _L, _P, _I, _I, _P, _I, _I, _P, _P],
+                         _I),
+    "m2v_probe_fma": ([_P, _P, _I, _I, _I, _I, _I, _I, _P, _P], _I),
+    "m2v_probe_mma": ([_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P], _I),
+    "m2v_probe_rows_copy": ([_P, _I, _I, _I, _I, _I, _P, _P], _I),
+    "m2v_probe_take": ([_P, _I, _P, _L, _I, _P, _P], _I),
+    "m2v_probe_transpose": ([_P, _I, _I, _P, _P], _I),
+    "m2v_radix_rank": ([_P, _P, _L, _I, _P], _I),
     "m2v_scatter": ([_P, _I, _P, _I, _P, _L, _L, _P], _I),
     "m2v_small_gather": ([_P, _P, _P, _I, _P, _I, _L, _L, _P], _I),
     "m2v_small_gather_max_sources": ([], _I),

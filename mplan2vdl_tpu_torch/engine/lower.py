@@ -17,9 +17,10 @@ The port evaluates Load, RangeC, RangeV, Binop, ``Shuffle GATHER``,
 dense-domain folds (one masked reduction per group id, or the fused
 multi-aggregate kernel for families of folds sharing a group key), the
 sparse sort-based group-by and Partition.  On the GPU, compaction, the
-gathers, the scatter and the fused aggregate run as hand-written CUDA
-kernels (``kernels/``).  Every other node kind raises
-``NotImplementedError`` naming it: a plan beyond the port fails loudly.
+gathers, the scatter and the fused aggregate (with MPLAN2VDL_MXU_AGG=1 its
+sums on the tensor cores) run as hand-written CUDA kernels (``kernels/``).
+Every other node kind raises ``NotImplementedError`` naming it: a plan
+beyond the port fails loudly.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from . import mergesearch, scan
 from .kernels import segred
 from .kernels.compact import compact_positions
 from .kernels.multiagg import AggSpec, fused_group_aggregate
+from .kernels.multiagg_mxu import fused_group_aggregate_mxu, mxu_agg_on
 from .kernels.scatter import monotone_scatter
 from .kernels.sorted_gather import SMALL_TABLE, gather_many
 
@@ -523,7 +525,15 @@ class Compiler:
         """One fold of a fused multi-aggregate family: the whole family
         computes in ONE kernel pass over the rows (engine/fuse.py,
         kernels/multiagg.py) and is cached; each fold takes its column and
-        compacts to occupied groups exactly like the dense path."""
+        compacts to occupied groups exactly like the dense path.
+
+        With MPLAN2VDL_MXU_AGG on, as in the JAX engine, the family's "sum"
+        specs (the appended count spec included) go to the tensor-core
+        contraction (kernels/multiagg_mxu.py) and its "max" specs (FChoose
+        group-key representatives) to kernels/multiagg.py, and the two
+        outputs are stacked back into spec order.  The JAX engine's
+        MPLAN2VDL_MXU_DOT picks between two Mosaic operand layouts and has
+        no counterpart here."""
         fam_idx, agg_idx = key
         fam = self.families[fam_idx]
         hit = self.fused_cache.get(fam_idx)
@@ -545,7 +555,21 @@ class Compiler:
                                      f"{len(arr)} rows, group ids {n}")
                 cols.append(arr.to(torch.int32))
             specs = list(fam.specs) + [AggSpec(base=None, bits=1)]
-            out = fused_group_aggregate(cols, gid, specs, fam.domain)
+            if mxu_agg_on():
+                s_idx = [i for i, s in enumerate(specs) if s.op == "sum"]
+                m_idx = [i for i, s in enumerate(specs) if s.op == "max"]
+                out_s = fused_group_aggregate_mxu(
+                    cols, gid, [specs[i] for i in s_idx], fam.domain)
+                parts = {i: out_s[:, j] for j, i in enumerate(s_idx)}
+                if m_idx:
+                    out_m = fused_group_aggregate(
+                        cols, gid, [specs[i] for i in m_idx], fam.domain)
+                    parts.update(
+                        {i: out_m[:, j] for j, i in enumerate(m_idx)})
+                out = torch.stack([parts[i] for i in range(len(specs))],
+                                  dim=1)
+            else:
+                out = fused_group_aggregate(cols, gid, specs, fam.domain)
             occ = out[:, -1] > 0
             hit = {"out": out, "occ": occ, "ngroups": occ.sum()}
             self.fused_cache[fam_idx] = hit

@@ -6,8 +6,9 @@ l_orderkey, all defined once in chip_smoke.py) run through the port
 (``device="cpu"``), through the JAX ``CompiledQuery`` on the CPU and
 through the oracles (the port's ``oracle/tpch``, numpy mask-and-take, and
 chip_smoke's numpy join oracles), at two seeds; Q1 runs with the fused
-multi-aggregate path forced on and off on both engines.  Every comparison
-is exact: the engine is integer throughout.
+multi-aggregate path forced on and off on both engines, and forced on with
+its sums on the tensor-core contraction (MPLAN2VDL_MXU_AGG=1).  Every
+comparison is exact: the engine is integer throughout.
 """
 
 import numpy as np
@@ -28,8 +29,9 @@ PLANS = {"q6": chip_smoke.PLAN_Q6, "q1": chip_smoke.PLAN_Q1,
          "sparse_groupby": chip_smoke.PLAN_SPARSE_GROUPBY}
 JOIN_ORACLES = {"q3": chip_smoke.oracle_q3, "q5": chip_smoke.oracle_q5,
                 "sparse_groupby": chip_smoke.oracle_sparse_groupby}
-RUNS = [("q6", None), ("q1", "1"), ("q1", "0"), ("filter_project", None),
-        ("q3", None), ("q5", None), ("sparse_groupby", None)]
+RUNS = [("q6", None), ("q1", "1"), ("q1", "0"), ("q1", "mxu"),
+        ("filter_project", None), ("q3", None), ("q5", None),
+        ("sparse_groupby", None)]
 
 
 @pytest.fixture(scope="module")
@@ -61,19 +63,28 @@ def _rows(cols):
     return sorted(zip(*[np.asarray(c, np.int64).tolist() for c in cols]))
 
 
+def _run_id(plan, fused):
+    if fused == "mxu":
+        return f"{plan}-mxu"
+    return f"{plan}-fused{fused}" if fused else plan
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 @pytest.mark.parametrize("plan,fused", RUNS,
-                         ids=[f"{p}-fused{f}" if f else p for p, f in RUNS])
+                         ids=[_run_id(p, f) for p, f in RUNS])
 def test_slice_matches_jax_and_oracle(stores, monkeypatch, seed, plan,
                                       fused):
-    if fused is not None:
+    if fused == "mxu":  # both engines: fused, sums on the tensor cores
+        monkeypatch.setenv("MPLAN2VDL_FUSED_AGG", "1")
+        monkeypatch.setenv("MPLAN2VDL_MXU_AGG", "1")
+    elif fused is not None:
         monkeypatch.setenv("MPLAN2VDL_FUSED_AGG", fused)
     ts, tcfg, js, jcfg = stores[seed]
     text = PLANS[plan]
     tq = tlower.CompiledQuery(tcfg, tlower.plan_to_vexps(text, tcfg), ts,
                               device="cpu")
     jq = jlower.CompiledQuery(jcfg, jlower.plan_to_vexps(text, jcfg), js)
-    if fused == "1":
+    if fused in ("1", "mxu"):
         assert len(tq.families) == 1 and len(jq.families) == 1
         assert tq.families[0].specs == [
             tlower.AggSpec(**vars(s)) for s in jq.families[0].specs]
@@ -118,6 +129,44 @@ def test_join_routing(stores, monkeypatch, small_table):
     n_cust = len(ts.columns[("customer", "c_custkey")])
     assert (n_cust in calls["small"]) == (n_cust <= small_table)
     assert (n_cust in calls["large"]) == (n_cust > small_table)
+
+
+@pytest.mark.parametrize("mxu", [True, False])
+def test_mxu_routing(stores, monkeypatch, mxu):
+    """With MPLAN2VDL_MXU_AGG on, Q1's family sends exactly its sum specs
+    (the appended count included) to the tensor-core aggregate and its max
+    specs to fused_group_aggregate; off, the tensor-core aggregate is never
+    called and fused_group_aggregate gets every spec."""
+    ts, tcfg, _, _ = stores[SEEDS[0]]
+    monkeypatch.setenv("MPLAN2VDL_FUSED_AGG", "1")
+    monkeypatch.setenv("MPLAN2VDL_MXU_AGG", "1" if mxu else "0")
+    calls = {"mxu": [], "fused": []}
+    mxu_fn, fused_fn = (tlower.fused_group_aggregate_mxu,
+                        tlower.fused_group_aggregate)
+
+    def spy_mxu(cols, gid, specs, n_groups):
+        calls["mxu"].append(list(specs))
+        return mxu_fn(cols, gid, specs, n_groups)
+
+    def spy_fused(cols, gid, specs, n_groups):
+        calls["fused"].append(list(specs))
+        return fused_fn(cols, gid, specs, n_groups)
+
+    monkeypatch.setattr(tlower, "fused_group_aggregate_mxu", spy_mxu)
+    monkeypatch.setattr(tlower, "fused_group_aggregate", spy_fused)
+    cq = tlower.compile_plan_text(chip_smoke.PLAN_Q1, tcfg, ts, device="cpu")
+    got = cq()
+    specs = list(cq.families[0].specs) + [tlower.AggSpec(base=None, bits=1)]
+    sums = [s for s in specs if s.op == "sum"]
+    maxes = [s for s in specs if s.op == "max"]
+    assert len(sums) == 7 and len(maxes) == 2
+    if mxu:
+        assert calls == {"mxu": [sums], "fused": [maxes]}
+    else:
+        assert calls == {"mxu": [], "fused": [specs]}
+    want = tpch.q1(ts)
+    assert _rows(got.columns) == _rows(
+        [want[k] for k in chip_smoke.Q1_COLUMNS])
 
 
 def test_fused_gate_default_threshold(stores, monkeypatch):

@@ -62,6 +62,10 @@ def test_import_pulls_in_no_jax():
     loaded = json.loads(out.strip().splitlines()[-1])
     assert len(_port_modules()) > 25
     assert "mplan2vdl_tpu_torch.engine.lower" in loaded
+    for mod in ("engine.kernels.multiagg_mxu", "engine.kernels.radix_rank",
+                "engine.kernels.probes", "tools.probe_radix",
+                "tools.probe_kernels"):
+        assert f"mplan2vdl_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _banned(m)] == []
 
 

@@ -4,7 +4,8 @@ Each plain version (what a kernel wrapper runs for a CPU tensor) gets the
 same numpy inputs as the JAX function, made from a seed, and must agree
 exactly (tolerance 0: every value is an integer).  The case lists are those
 of tests/test_compact.py, tests/test_sorted_gather.py,
-tests/test_scatter_kernel.py and tests/test_multiagg.py.  The JAX side runs as its own tests run it: the
+tests/test_scatter_kernel.py, tests/test_multiagg.py and
+tests/test_multiagg_mxu.py.  The JAX side runs as its own tests run it: the
 Pallas kernels in interpret mode.  The CUDA kernels themselves run only on
 the GPU, where chip_smoke.py holds them against these plain versions.
 """
@@ -17,11 +18,13 @@ import jax.numpy as jnp
 
 from mplan2vdl_tpu.engine.kernels import compact as jcompact
 from mplan2vdl_tpu.engine.kernels import multiagg as jmultiagg
+from mplan2vdl_tpu.engine.kernels import multiagg_mxu as jmxu
 from mplan2vdl_tpu.engine.kernels import scatter as jscatter
 from mplan2vdl_tpu.engine.kernels import segred as jsegred
 from mplan2vdl_tpu.engine.kernels import sorted_gather as jgather
 from mplan2vdl_tpu_torch.engine.kernels import compact as tcompact
 from mplan2vdl_tpu_torch.engine.kernels import multiagg as tmultiagg
+from mplan2vdl_tpu_torch.engine.kernels import multiagg_mxu as tmxu
 from mplan2vdl_tpu_torch.engine.kernels import scatter as tscatter
 from mplan2vdl_tpu_torch.engine.kernels import segred as tsegred
 from mplan2vdl_tpu_torch.engine.kernels import sorted_gather as tgather
@@ -332,6 +335,82 @@ def test_spec_words_layout():
     assert tmultiagg.spec_words(specs) == [0, 3, 2, 100, -1, 4, 7, 1, 0,
                                            0, -1, 0, 1, 1, 0]
     assert [s.nlimb for s in specs] == [2, 1, 1]
+
+
+# ------------------------------------------- tensor-core fused aggregate
+def _mxu_q1(seed, n, groups):
+    """tests/test_multiagg_mxu.py's Q1-shaped family."""
+    rng = np.random.default_rng(seed)
+    gid = rng.integers(-1, groups, size=n).astype(np.int32)
+    cols = [rng.integers(0, 5100, size=n).astype(np.int32),
+            rng.integers(0, 10_000_000, size=n).astype(np.int32),
+            rng.integers(0, 11, size=n).astype(np.int32),
+            rng.integers(0, 9, size=n).astype(np.int32)]
+    specs = [dict(base=0, bits=13), dict(base=1, bits=24),
+             dict(base=1, factors=((100, -1, 2),), bits=32),
+             dict(base=1, factors=((100, -1, 2), (100, 1, 3)), bits=41),
+             dict(base=2, bits=4), dict(base=None, bits=1)]
+    return cols, gid, specs, groups
+
+
+def _mxu_near_bound():
+    rng = np.random.default_rng(3)
+    n, groups = 40_000, 3
+    gid = rng.integers(0, groups, size=n).astype(np.int32)
+    cols = [np.full(n, 2**31 - 1, dtype=np.int32),
+            np.full(n, 32766, dtype=np.int32)]
+    specs = [dict(base=0, bits=31), dict(base=0, factors=((1, 1, 1),),
+                                          bits=46)]
+    return cols, gid, specs, groups
+
+
+MXU_CASES = {"q1-shape": lambda: _mxu_q1(0, 60_000, 4),
+             "odd-tail": lambda: _mxu_q1(1, 30_001, 7),
+             "near-bits-bound": _mxu_near_bound,
+             **{f"fuzz-{seed}": (lambda seed=seed: _mxu_q1(
+                 seed, 17_000 + seed * 997, 2 + seed % 6))
+                for seed in range(4, 10)},
+             "groups-37": lambda: _mxu_q1(11, 20_000, 37)}
+
+
+@pytest.mark.parametrize("case", list(MXU_CASES))
+def test_mxu_aggregate_matches_jax(case):
+    """The port's CPU path (the plain version of the tensor-core kernel)
+    against the JAX MXU kernel in interpret mode and the reference."""
+    cols, gid, specs, groups = MXU_CASES[case]()
+    want = np.asarray(jmxu.fused_group_aggregate_mxu(
+        [jnp.asarray(c) for c in cols], jnp.asarray(gid),
+        [jmultiagg.AggSpec(**s) for s in specs], groups, interpret=True))
+    ref = np.asarray(jmultiagg.reference_group_aggregate(
+        cols, gid, [jmultiagg.AggSpec(**s) for s in specs], groups))
+    got = tmxu.fused_group_aggregate_mxu(
+        [torch.from_numpy(c) for c in cols], torch.from_numpy(gid),
+        [tmultiagg.AggSpec(**s) for s in specs], groups)
+    assert got.dtype == torch.int64 and got.shape == (groups, len(specs))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_mxu_aggregate_refuses_max_specs():
+    cols = [torch.arange(10, dtype=torch.int32)]
+    gid = torch.zeros(10, dtype=torch.int32)
+    specs = [tmultiagg.AggSpec(base=0, bits=4),
+             tmultiagg.AggSpec(base=0, bits=4, op="max")]
+    with pytest.raises(ValueError, match="sums only"):
+        tmxu.fused_group_aggregate_mxu(cols, gid, specs, 1)
+    assert tmxu.plane_offsets(specs[:1] + [
+        tmultiagg.AggSpec(base=None, bits=1),
+        tmultiagg.AggSpec(base=0, bits=46)]) == [0, 1, 2, 8]
+
+
+def test_mxu_switch(monkeypatch):
+    """Read as the JAX engine reads MPLAN2VDL_MXU_AGG; off by default."""
+    for value, on in ((None, False), ("", False), ("0", False), ("1", True)):
+        if value is None:
+            monkeypatch.delenv("MPLAN2VDL_MXU_AGG", raising=False)
+        else:
+            monkeypatch.setenv("MPLAN2VDL_MXU_AGG", value)
+        assert tmxu.mxu_agg_on() is on is jmxu.mxu_agg_on()
 
 
 # ------------------------------------------------- segmented reductions
