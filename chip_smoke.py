@@ -8,18 +8,26 @@ Phases (any failure ends the run with a nonzero exit; nothing is caught):
   2. builds the CUDA kernels from ``mplan2vdl_tpu_torch/engine/kernels/csrc``;
   3. holds each kernel exactly equal to its plain PyTorch version on the
      card, at the shapes of a TPC-H store of the chosen scale (lineitem
-     rows, orders slots, dimension tables; the tensor-core aggregate also
-     with negative group ids, an odd row count, values near the bits bound,
-     37 groups and one block over every row; the digit rank at 4 and 8
-     bits over random, all-equal and ascending keys), and times kernel,
-     plain version and library yardstick with CUDA events;
+     rows, orders slots, dimension tables; the compaction also at its tile
+     size +-1, with one true row first or last, a zero tail, and over 50
+     calls in a row on masks of changing length, and shown to reuse its
+     scratch with no fill per call; the fused aggregate on both of its
+     paths, with every
+     row in one group, 16 and 17 groups, 13 specs and fewer rows than a
+     block; the tensor-core aggregate also with negative group ids, an odd
+     row count, values near the bits bound, 37 groups and one block over
+     every row; the digit rank at 4 and 8 bits over random, all-equal and
+     ascending keys), and times kernel, plain version and library
+     yardstick with CUDA events;
   4. drives the port end to end through ``plan_to_vexps`` +
      ``CompiledQuery`` on ``cuda``: TPC-H Q6, Q1 (fused by the automatic
      gate, with its sums on the tensor cores by MPLAN2VDL_MXU_AGG=1, and
      with MPLAN2VDL_FUSED_AGG=0), a lineitem scan-filter-project, then the
      FK-join path: TPC-H Q3 (no-order form), Q5 and a sparse group-by over
      l_orderkey.  Each run is row-exact against its oracle, and the engine
-     kernels' launch counters are read around it;
+     kernels' launch counters are read around it (Q6 and every Q1 run
+     must compact; the fused Q1 runs launch the fused aggregate once);
+     ``--profile`` adds each engine kernel's device time per query;
   5. the probes: ``tools.probe_kernels`` (every pattern probe OK, each
      kernel equal to its plain version, timed) and ``tools.probe_radix``
      at its default sizes and the lineitem row count rounded up to a
@@ -319,6 +327,34 @@ def _bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+# the CUDA function names of each engine kernel, as the profiler reports
+# them (a name must not follow an identifier character: small_gather_kernel
+# is not gather_kernel)
+KERNEL_FUNCTIONS = {"compact": ("compact_kernel",),
+                    "gather": ("gather_kernel",),
+                    "multiagg": ("lane_kernel", "shared_kernel"),
+                    "scatter": ("scatter_kernel",),
+                    "small_gather": ("small_gather_kernel",),
+                    "multiagg_mxu": ("mxu_kernel",)}
+
+
+def _engine_kernel(key: str):
+    """The engine kernel whose CUDA function a profiler entry names, or
+    None."""
+    import re
+
+    for k, fns in KERNEL_FUNCTIONS.items():
+        if any(re.search(rf"(?<![A-Za-z0-9_]){f}\b", key) for f in fns):
+            return k
+    return None
+
+
+def _dev_us(e) -> float:
+    """Device microseconds of a torch.profiler key-average entry."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0))
+
+
 class Smoke:
     def __init__(self, args):
         import torch
@@ -460,17 +496,61 @@ class Smoke:
         cmp_case("n_out trimmed to half the count", m159, cnt["15.9%"] // 2)
         cmp_case("unaligned view", m159[3:])
         cmp_case("n=1", m159[:1])
+        tile = compact.TILE
+        one = torch.zeros(n, dtype=torch.bool, device=self.dev)
+        one[5] = True
+        cmp_case("single true row in the first tile", one)
+        one[5], one[n - 1] = False, True
+        cmp_case("single true row in the last row", one)
+        for k in (tile - 1, tile, tile + 1):
+            cmp_case(f"n={k} (tile {tile} {k - tile:+d})", m159[:k])
+        cmp_case("n_out = count + 100000 (zero tail)", m159,
+                 cnt["15.9%"] + 100_000)
+        # many calls in a row on masks of changing length: stale tickets,
+        # status words or epochs would show here
+        gen = torch.Generator(device=self.dev).manual_seed(self.args.seed + 3)
+        for i in range(50):
+            k = int(torch.randint(1, min(n, 3 * tile * (i + 1)) + 1, (1,),
+                                  generator=gen, device=self.dev))
+            m = torch.rand(k, generator=gen, device=self.dev) < (i % 10) / 9
+            got = compact.compact_positions(m, k // (1 + i % 3))
+            want = compact.compact_positions_plain(m, k // (1 + i % 3))
+            if not torch.equal(got, want):
+                raise AssertionError(f"compact: call {i} of 50 (n={k}) "
+                                     "differs from the plain version")
+        self.equal("compact 50 calls in a row, changing n", got, want)
+        del one
 
+        # no fill per call: once the look-back scratch exists, calls reuse
+        # it (tickets and epochs advance), so a call is the one kernel that
+        # m2v_compact launches.  (A profiler session here once left the
+        # later --profile tables short of kernel records.)
         c159 = cnt["15.9%"]
-        compact.launches = 0
-        ms = self.cuda_ms(lambda: compact.compact_positions(m159, c159), reps)
-        timed_launches = compact.launches
-        plain_ms = self.cuda_ms(
-            lambda: compact.compact_positions_plain(m159, c159), 3)
-        lib_ms = self.cuda_ms(lambda: torch.nonzero(m159), reps)
-        self.kernel_time("compact", f"mask bool[{n}] 15.9% -> int32[{c159}]",
-                         ms, plain_ms, lib_ms, _bound_ms(n + 4 * c159),
-                         timed_launches)
+        compact.compact_positions(m159, c159)
+        key = (self.dev.index or 0, torch.cuda.current_stream().cuda_stream)
+        state, buf = compact._scratch[key]
+        epoch, ptr = state.epoch, buf.data_ptr()
+        for _ in range(3):
+            compact.compact_positions(m159, c159)
+        state, buf = compact._scratch[key]
+        if (state.epoch, buf.data_ptr()) != (epoch + 3, ptr):
+            raise AssertionError("compact: the look-back scratch was "
+                                 "allocated again between calls")
+        print(json.dumps({"compact scratch reused, epoch": state.epoch}),
+              flush=True)
+
+        for k, m in (("15.9%", m159), ("1.9%", m19), ("98.6%", m986)):
+            c = cnt[k]
+            compact.launches = 0
+            ms = self.cuda_ms(lambda: compact.compact_positions(m, c), reps)
+            timed_launches = compact.launches
+            plain_ms = self.cuda_ms(
+                lambda: compact.compact_positions_plain(m, c), 3)
+            lib_ms = self.cuda_ms(lambda: torch.nonzero(m), reps)
+            self.kernel_time("compact" if k == "15.9%" else f"compact {k}",
+                             f"mask bool[{n}] {k} -> int32[{c}]", ms,
+                             plain_ms, lib_ms, _bound_ms(n + 4 * c),
+                             timed_launches)
 
         # ---- gather
         pos = compact.compact_positions(m159, c159)
@@ -542,10 +622,13 @@ class Smoke:
                           -1).to(torch.int32)
 
         def a_case(what, cs, g, sp, groups):
+            path = ("lane" if multiagg.lane_path(groups, len(sp))
+                    else "shared")
             got = multiagg.fused_group_aggregate(cs, g, sp, groups)
             want = multiagg.reference_group_aggregate(cs, g, sp, groups)
-            e = self.equal(f"multiagg {what}", got, want)
+            e = self.equal(f"multiagg {what} ({path})", got, want)
             self.max_err["multiagg"] = max(self.max_err["multiagg"], e)
+            return path
 
         a_case(f"Q1 specs n={n}", cols, gid, specs, fam.domain)
         gneg = gid.clone()
@@ -563,6 +646,25 @@ class Smoke:
                 multiagg.AggSpec(base=None, bits=1)]
         a_case("values near the bits bound", [big, zero],
                torch.zeros(nb, dtype=torch.int32, device=self.dev), near, 1)
+        paths = set()
+        g0 = torch.where(gid >= 0, 0, -1).to(torch.int32)
+        paths.add(a_case("every row in one group", cols, g0, specs,
+                         fam.domain))
+        g16 = (rows * 2654435761 % 16).to(torch.int32)
+        paths.add(a_case("16 groups x Q1's specs", cols, g16, specs, 16))
+        g17 = (rows * 2654435761 % 17).to(torch.int32)
+        paths.add(a_case("17 groups", cols, g17, specs, 17))
+        many = specs + specs[:multiagg.LANE_MAX_SPECS + 1 - len(specs)]
+        paths.add(a_case(f"{len(many)} specs", cols, gid, many, fam.domain))
+        for k in (3, 100, 1000):
+            paths.add(a_case(f"n={k} (below one block)", [c[:k] for c in cols],
+                             gid[:k], specs, fam.domain))
+        unaligned = [c[1:] for c in cols]
+        paths.add(a_case("unaligned views", unaligned, gid[1:], specs,
+                         fam.domain))
+        if paths != {"lane", "shared"}:
+            raise AssertionError(f"multiagg checked only {paths}")
+        del g0, unaligned
 
         multiagg.launches = 0
         ms = self.cuda_ms(lambda: multiagg.fused_group_aggregate(
@@ -574,6 +676,17 @@ class Smoke:
                          f"{fam.domain} groups over {len(cols)} int32[{n}] "
                          "columns + int32 gid", ms, plain_ms, None,
                          _bound_ms(4 * (len(cols) + 1) * n), timed_launches)
+        # the fast path's largest engine family, and the general path
+        for groups, g in ((16, g16), (17, g17)):
+            ms = self.cuda_ms(lambda: multiagg.fused_group_aggregate(
+                cols, g, specs, groups), reps)
+            path = "lane" if multiagg.lane_path(groups, len(specs)) \
+                else "shared"
+            self.kernel_time(f"multiagg {groups} groups ({path})",
+                             f"{len(specs)} Q1 specs x {groups} groups, "
+                             "hashed row ids", ms, None, None,
+                             _bound_ms(4 * (len(cols) + 1) * n), None)
+        del g16, g17
 
         self.scatter_kernel()
         self.small_gather_kernel()
@@ -881,14 +994,17 @@ class Smoke:
             st, [("lineitem", "l_quantity")]) else "Q1 (auto gate: unfused)"
         # (name, plan, MPLAN2VDL_FUSED_AGG, check, kernels it must launch);
         # MPLAN2VDL_MXU_AGG is set for the Q1_MXU run only
-        runs = [("Q6", PLAN_Q6, None, check_q6, ()),
-                (q1_auto, PLAN_Q1, None, check_q1, ())]
+        runs = [("Q6", PLAN_Q6, None, check_q6, ("compact",)),
+                (q1_auto, PLAN_Q1, None, check_q1,
+                 ("compact", "multiagg") if q1_auto.startswith("Q1 fused")
+                 else ("compact",))]
         if not q1_auto.startswith("Q1 fused"):
-            runs.append(("Q1 fused (forced)", PLAN_Q1, "1", check_q1, ()))
+            runs.append(("Q1 fused (forced)", PLAN_Q1, "1", check_q1,
+                         ("compact", "multiagg")))
         runs += [(Q1_MXU, PLAN_Q1, "1", check_q1,
-                  ("multiagg_mxu", "multiagg")),
+                  ("compact", "multiagg_mxu", "multiagg")),
                  ("Q1 unfused (MPLAN2VDL_FUSED_AGG=0)", PLAN_Q1, "0",
-                  check_q1, ()),
+                  check_q1, ("compact",)),
                  ("filter-project", PLAN_FILTER_PROJECT, None, check_fp, ()),
                  ("Q3", PLAN_Q3, None, check_rows(Q3_COLUMNS, oracle_q3),
                   ("compact", "gather", "scatter")),
@@ -924,6 +1040,10 @@ class Smoke:
             idle = [k for k in must if launches[k] == 0]
             if idle:
                 raise AssertionError(f"{name} launched no {idle} kernel")
+            if "multiagg" in must and name != Q1_MXU and launches[
+                    "multiagg"] != 1:
+                raise AssertionError(f"{name}: {launches['multiagg']} "
+                                     "multiagg launches, not one")
             if name == Q1_MXU and (launches["multiagg_mxu"], launches[
                     "multiagg"]) != (1, 1):
                 raise AssertionError(f"{name}: {launches}, not one launch "
@@ -956,6 +1076,14 @@ class Smoke:
             os.environ.pop("MPLAN2VDL_MXU_AGG", None)
             del cq
         self.launches = total
+        if self.args.profile:
+            dev = {k: [0, 0.0] for k in counters}
+            for rec in self.records["queries"]:
+                for k, (c, t) in rec["profile"]["kernels"].items():
+                    dev[k][0] += c
+                    dev[k][1] += t
+            self.records["main_path_device_ms"] = dev
+            print(json.dumps({"main_path_device_ms": dev}), flush=True)
         for k, v in total.items():
             if v == 0:
                 raise AssertionError(f"kernel {k} was not launched by the "
@@ -1026,16 +1154,20 @@ class Smoke:
             wall = (time.perf_counter() - t0) * 1e3
         avg = prof.key_averages()
 
-        def dev_us(e):
-            return getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0))
-
+        dev_us = _dev_us
         # kernels are the CUDA-type entries; the CPU-side ops that launched
         # them carry the same device time, so they name the top spenders
-        device = sum(dev_us(e) for e in avg
-                     if e.device_type == DeviceType.CUDA) / 1e3
+        cuda = [e for e in avg if e.device_type == DeviceType.CUDA]
+        device = sum(dev_us(e) for e in cuda) / 1e3
         ops = [e for e in avg if e.device_type == DeviceType.CPU]
         top = sorted(ops, key=dev_us, reverse=True)[:8]
+        # the engine kernels' own entries: [launches, device ms]
+        kernels = {}
+        for e in cuda:
+            k = _engine_kernel(e.key)
+            if k is not None:
+                c, t = kernels.get(k, (0, 0.0))
+                kernels[k] = (c + e.count, t + dev_us(e) / 1e3)
         os.makedirs(self.args.profile, exist_ok=True)
         stem = "".join(c if c.isalnum() else "_" for c in name)
         with open(os.path.join(self.args.profile, stem + ".txt"), "w") as f:
@@ -1043,6 +1175,7 @@ class Smoke:
                               max_name_column_width=100))
         return {"wall_ms": wall, "device_ms": device,
                 "busy_share": device / wall,
+                "kernels": {k: list(v) for k, v in kernels.items()},
                 "top": [[e.key, e.count, dev_us(e) / 1e3] for e in top]}
 
     def summary(self):

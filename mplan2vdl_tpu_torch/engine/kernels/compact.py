@@ -3,21 +3,32 @@
 ``FoldSelect`` compacts a boolean mask into ascending positions, and the
 dense folds compact their group occupancy the same way
 (``lower._sel_positions``).  On a CUDA tensor the wrapper launches the
-hand-written kernel in ``csrc/compact.cu`` (count, scan, write; see the
-note there); on a CPU tensor it runs the plain version.  Replaces
+hand-written kernel in ``csrc/compact.cu`` (one launch, a single-pass scan
+by decoupled look-back; see the note there); on a CPU tensor it runs the
+plain version.  Replaces
 ``mplan2vdl_tpu/engine/kernels/compact.py:compact_positions`` with the same
 contract.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import _lib
 
 INT32_MAX = 2**31 - 1
+
+# rows per tile of the kernel (csrc/compact.cu kTile)
+TILE = 32768
+# zero-tail slots per extra block, and the most extra blocks one call takes
+TAIL_SLOTS = 1 << 16
+MAX_TAIL_BLOCKS = 264
+# status words carry a 30-bit epoch; 0 marks a word never written
+EPOCH_LIMIT = 1 << 30
+# status words allocated at least, so that small masks share one buffer
+MIN_STATUS = 1024
 
 # kernel launches made by compact_positions (callers reset it to count a run)
 launches = 0
@@ -33,6 +44,54 @@ def compact_positions_plain(mask: torch.Tensor,
     out = torch.zeros(n_out, dtype=torch.int32, device=mask.device)
     out[:pos.shape[0]] = pos.to(torch.int32)
     return out
+
+
+def tiles(n: int) -> int:
+    """Tiles (look-back status words) of a mask of ``n`` rows."""
+    return -(-n // TILE)
+
+
+def tail_blocks(n_out: int) -> int:
+    """Blocks launched beyond the tiles to write the zero tail of an output
+    of ``n_out`` slots (none when there are no slots)."""
+    return min(-(-n_out // TAIL_SLOTS), MAX_TAIL_BLOCKS)
+
+
+class Lookback:
+    """Host bookkeeping of one stream's look-back scratch: an int64 buffer
+    of ``words`` = 1 + status words, ``[0]`` the kernel's ticket counter.
+
+    The kernel never resets the counter, so ``issued`` tracks the tickets
+    that earlier calls drew; each call gets a new ``epoch`` so that status
+    words of earlier calls read as unpublished.  ``plan`` returns, per
+    call, the word count of a fresh zeroed buffer when one is needed (first
+    use, more tiles than it holds, the epoch about to wrap) or None."""
+
+    def __init__(self) -> None:
+        self.words = 0
+        self.issued = 0
+        self.epoch = 0
+
+    def plan(self, n_tiles: int, blocks: int) -> Tuple[Optional[int], int,
+                                                       int]:
+        """(fresh words or None, ticket base, epoch) for a call of
+        ``n_tiles`` tiles launched as ``blocks`` blocks."""
+        fresh = None
+        if n_tiles > self.words - 1 or self.epoch + 1 >= EPOCH_LIMIT:
+            fresh = 1 + max(n_tiles, 2 * (self.words - 1), MIN_STATUS)
+            self.words, self.issued, self.epoch = fresh, 0, 0
+        self.epoch += 1
+        base = self.issued
+        self.issued += blocks
+        return fresh, base, self.epoch
+
+    def forget(self) -> None:
+        """After a refused launch: the next call starts from fresh scratch."""
+        self.words = 0
+
+
+# (device index, stream handle) -> (Lookback, its device buffer)
+_scratch: Dict[Tuple[int, int], Tuple[Lookback, Optional[torch.Tensor]]] = {}
 
 
 def compact_positions(mask: torch.Tensor,
@@ -58,13 +117,21 @@ def compact_positions(mask: torch.Tensor,
         mask = mask.clone(memory_format=torch.contiguous_format)
     global launches
     lib = _lib.lib()
-    tile = lib.m2v_compact_tile()
-    nb = -(-n // tile)
+    if lib.m2v_compact_tile() != TILE:
+        raise RuntimeError("compact.cu's tile differs from compact.TILE")
     out = torch.empty(n_out, dtype=torch.int32, device=mask.device)
-    counts = torch.empty(max(nb, 1), dtype=torch.int32, device=mask.device)
-    offsets = torch.empty(nb + 1, dtype=torch.int32, device=mask.device)
-    _lib.check(lib.m2v_compact(mask.data_ptr(), n, counts.data_ptr(),
-                               offsets.data_ptr(), out.data_ptr(), n_out,
-                               _lib.stream(mask)), "compact")
+    stream = _lib.stream(mask)
+    key = (mask.device.index or 0, stream)
+    state, buf = _scratch.get(key, (Lookback(), None))
+    nt, tail = tiles(n), tail_blocks(n_out)
+    fresh, base, epoch = state.plan(nt, nt + tail)
+    if fresh is not None:
+        buf = torch.zeros(fresh, dtype=torch.int64, device=mask.device)
+    _scratch[key] = (state, buf)
+    rc = lib.m2v_compact(mask.data_ptr(), n, buf.data_ptr(), base, epoch,
+                         out.data_ptr(), n_out, tail, stream)
+    if rc != 0:
+        state.forget()
+    _lib.check(rc, "compact")
     launches += 1
     return out

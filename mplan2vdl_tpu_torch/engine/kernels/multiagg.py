@@ -7,9 +7,10 @@ count) that is summed, or max-reduced for ``op="max"`` (FChoose), per
 group; rows with a group id outside ``[0, n_groups)`` are skipped.
 
 On CUDA tensors ``fused_group_aggregate`` launches the hand-written kernel
-in ``csrc/multiagg.cu`` (int64 arithmetic per row, shared-memory atomics
-per block; see the note there); on CPU tensors it runs
-``reference_group_aggregate``, the plain version.  Replaces
+in ``csrc/multiagg.cu`` (int64 arithmetic per row; see the note there):
+the lane-private fast path for the families the engine fuses
+(``lane_path``), the shared-atomic general path for the rest.  On CPU
+tensors it runs ``reference_group_aggregate``, the plain version.  Replaces
 ``mplan2vdl_tpu/engine/kernels/multiagg.py:fused_group_aggregate`` with the
 same contract; the 16-bit limb layout that kept the TPU kernel exact in
 int32 has no counterpart.
@@ -28,6 +29,12 @@ LIMB_BITS = 16
 
 # kernel launches made by fused_group_aggregate (callers reset it)
 launches = 0
+
+# The fast path's reach: every family ``fuse.plan_fusions`` emits has at
+# most ``fuse.MAX_DOMAIN`` = 16 groups (Q1: 8 groups, 9 specs).  The spec
+# limit is csrc/multiagg.cu's kLaneMaxSpecs (one lane kernel per count).
+LANE_MAX_GROUPS = 16
+LANE_MAX_SPECS = 12
 
 
 @dataclass(frozen=True)
@@ -68,6 +75,13 @@ def spec_words(specs: Sequence[AggSpec]) -> List[int]:
         for c, sign, col in s.factors:
             words += [c, sign, col]
     return words
+
+
+def lane_path(n_groups: int, n_specs: int) -> bool:
+    """Whether a call takes the kernel's fast path (a lane-private table per
+    warp, no atomic per row) rather than its general path (one shared
+    table per block, updated with atomics)."""
+    return n_groups <= LANE_MAX_GROUPS and n_specs <= LANE_MAX_SPECS
 
 
 def reference_group_aggregate(cols: Sequence[torch.Tensor],
@@ -118,14 +132,20 @@ def fused_group_aggregate(cols: Sequence[torch.Tensor], gid: torch.Tensor,
         return reference_group_aggregate(cols, gid, specs, n_groups)
     if gid.device.type != "cuda":
         raise ValueError(f"unsupported device {gid.device}")
-    cols = [c.contiguous() for c in cols]
-    gid = gid.contiguous()
+    lane = lane_path(n_groups, len(specs))
+
+    def ready(t):  # the fast path copies 16-byte quads of rows
+        t = t.contiguous()
+        return t.clone() if lane and t.data_ptr() % 16 else t
+
+    cols = [ready(c) for c in cols]
+    gid = ready(gid)
     out = torch.zeros((n_groups, len(specs)), dtype=torch.int64,
                       device=gid.device)
     lib = _lib.lib()
     rc = lib.m2v_multiagg(_lib.ptrs(cols), len(cols), gid.data_ptr(), n,
                           _lib.ints(words), len(words), len(specs), n_groups,
-                          out.data_ptr(), _lib.stream(gid))
+                          int(lane), out.data_ptr(), _lib.stream(gid))
     _lib.check(rc, "multiagg")
     launches += 1
     return out

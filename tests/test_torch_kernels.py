@@ -51,6 +51,12 @@ def _masks():
     strag = np.zeros(n, bool)
     strag[np.sort(rng.choice(n, 97, replace=False))] = True
     out.append(("block-boundary-carry", strag, None))
+    # the CUDA kernel's tile (compact.TILE rows) and one row either side
+    tile = tcompact.TILE
+    for n in (tile - 1, tile + 1):
+        rng = np.random.default_rng(n)
+        out.append((f"tile{n - tile:+d}", rng.random(n) < 0.4, None))
+    out.append(("all-true-two-tiles+1", np.ones(2 * tile + 1, bool), None))
     return out
 
 
@@ -61,6 +67,31 @@ def test_compact_matches_jax(interpret_mode, mask, n_out):
     got = tcompact.compact_positions(torch.from_numpy(mask), n_out)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_compact_scratch_sizing():
+    """The look-back scratch: zeroed words only on first use, on growth
+    (at least double) and when the epoch would wrap; otherwise each call
+    draws its tickets after the previous call's and gets a new epoch."""
+    assert (tcompact.tiles(1), tcompact.tiles(tcompact.TILE),
+            tcompact.tiles(tcompact.TILE + 1)) == (1, 1, 2)
+    assert tcompact.tiles(60_003_426) == 1832
+    assert [tcompact.tail_blocks(k) for k in (0, 1, tcompact.TAIL_SLOTS,
+                                              tcompact.TAIL_SLOTS + 1,
+                                              60_003_426)] == [
+        0, 1, 1, 2, tcompact.MAX_TAIL_BLOCKS]
+    lb = tcompact.Lookback()
+    assert lb.plan(3, 5) == (1 + tcompact.MIN_STATUS, 0, 1)
+    assert lb.plan(1, 2) == (None, 5, 2)
+    assert lb.plan(tcompact.MIN_STATUS, 7) == (None, 7, 3)
+    fresh, base, epoch = lb.plan(tcompact.MIN_STATUS + 1, 4)
+    assert (fresh, base, epoch) == (1 + 2 * tcompact.MIN_STATUS, 0, 1)
+    assert lb.plan(7325, 7400) == (7326, 0, 1)
+    lb.epoch = tcompact.EPOCH_LIMIT - 2
+    assert lb.plan(1, 1) == (None, 7400, tcompact.EPOCH_LIMIT - 1)
+    assert lb.plan(1, 1) == (1 + 2 * 7325, 0, 1)
+    lb.forget()
+    assert lb.plan(1, 1)[0] is not None
 
 
 def test_compact_rejects_bad_input():
@@ -312,10 +343,28 @@ def _extremes():
     return cols, np.zeros(n, np.int32), specs, 1, 2048
 
 
-@pytest.mark.parametrize("case", [0, 1, 2, "extremes"])
+def _q1_groups(seed, groups, one_group=False):
+    """Q1-like columns and nine specs of Q1's shapes (sums, counts, maxes) over
+    ``groups`` groups, or with every row in group 3 (the most contention
+    for a per-row update of shared cells)."""
+    cols, gid, specs, _, block = _q1_like(seed)
+    rng = np.random.default_rng(seed + 100)
+    gid = rng.integers(-1, groups, len(gid)).astype(np.int32)
+    if one_group:
+        gid[:] = 3
+    specs = specs + [dict(base=3, bits=31, op="max"), dict(base=0, bits=20)]
+    return cols, gid, specs, groups, block
+
+
+AGG_CASES = {0: lambda: _q1_like(0), 1: lambda: _q1_like(1),
+             2: lambda: _q1_like(2), "extremes": _extremes,
+             "groups-16": lambda: _q1_groups(3, 16),
+             "one-group": lambda: _q1_groups(4, 8, one_group=True)}
+
+
+@pytest.mark.parametrize("case", list(AGG_CASES))
 def test_fused_group_aggregate_matches_jax(case):
-    cols, gid, specs, groups, block = (_extremes() if case == "extremes"
-                                       else _q1_like(case))
+    cols, gid, specs, groups, block = AGG_CASES[case]()
     want = np.asarray(jmultiagg.fused_group_aggregate(
         [jnp.asarray(_pad(c, block)) for c in cols],
         jnp.asarray(_pad(gid, block, fill=-1)),
@@ -326,6 +375,30 @@ def test_fused_group_aggregate_matches_jax(case):
         [tmultiagg.AggSpec(**s) for s in specs], groups)
     assert got.dtype == torch.int64
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_lane_path_takes_every_engine_family(monkeypatch):
+    """The kernel's fast path (lane-private tables) takes every family that
+    fuse.plan_fusions can emit at Q1's shape, alone and split as the MXU
+    routing splits it; the general path takes the rest."""
+    import chip_smoke
+    from mplan2vdl_tpu_torch.engine import datagen, fuse, lower
+
+    assert tmultiagg.LANE_MAX_GROUPS == fuse.MAX_DOMAIN
+    st = datagen.generate(sf=0.01, seed=7)
+    monkeypatch.setenv("MPLAN2VDL_FUSED_AGG", "1")
+    cq = lower.compile_plan_text(chip_smoke.PLAN_Q1, st.make_catalog(), st,
+                                 device="cpu")
+    (fam,) = cq.families
+    specs = list(fam.specs) + [tmultiagg.AggSpec(base=None, bits=1)]
+    assert (fam.domain, len(specs)) == (8, 9)
+    maxes = [s for s in specs if s.op == "max"]
+    for groups in range(1, fuse.MAX_DOMAIN + 1):
+        for k in (len(specs), len(maxes), 1):
+            assert tmultiagg.lane_path(groups, k), (groups, k)
+    assert not tmultiagg.lane_path(fuse.MAX_DOMAIN + 1, len(specs))
+    assert not tmultiagg.lane_path(8, tmultiagg.LANE_MAX_SPECS + 1)
+    assert tmultiagg.lane_path(16, tmultiagg.LANE_MAX_SPECS)
 
 
 def test_spec_words_layout():
