@@ -12,11 +12,12 @@ Phases (any failure ends the run with a nonzero exit; nothing is caught):
      size +-1, with one true row first or last, a zero tail, and over 50
      calls in a row on masks of changing length, and shown to reuse its
      scratch with no fill per call; the fused aggregate on both of its
-     paths, with every
-     row in one group, 16 and 17 groups, 13 specs and fewer rows than a
-     block; the tensor-core aggregate also with negative group ids, an odd
-     row count, values near the bits bound, 37 groups and one block over
-     every row; the digit rank at 4 and 8 bits over random, all-equal and
+     paths, with every row in one group, 16 and 17 groups, 13 specs and
+     fewer rows than a block; the tensor-core aggregate on both of its
+     paths, with negative and too-large group ids, row counts that are no
+     step multiple, unaligned views, 16, 17 and 37 groups, 12 and 13 specs,
+     values near the bits bound, and one block (and one warp) over every
+     row; the digit rank at 4 and 8 bits over random, all-equal and
      ascending keys), and times kernel, plain version and library
      yardstick with CUDA events;
   4. drives the port end to end through ``plan_to_vexps`` +
@@ -335,7 +336,7 @@ KERNEL_FUNCTIONS = {"compact": ("compact_kernel",),
                     "multiagg": ("lane_kernel", "shared_kernel"),
                     "scatter": ("scatter_kernel",),
                     "small_gather": ("small_gather_kernel",),
-                    "multiagg_mxu": ("mxu_kernel",)}
+                    "multiagg_mxu": ("mxu_kernel", "fast_kernel")}
 
 
 def _engine_kernel(key: str):
@@ -426,12 +427,19 @@ class Smoke:
     def build(self):
         from mplan2vdl_tpu_torch.engine.kernels import _lib
 
+        import re
+
         secs = _lib.build()
         _lib.lib()
         for src, out in _lib.build_info["ptxas"].items():
+            fn = ""  # the kernel ptxas reports on, as name<template args>
             for ln in out.splitlines():
+                m = re.search(r"entry function '[^']*?\d([a-z][a-z_]*_kernel)"
+                              r"(?:ILi(\d+)E)?", ln)
+                if m:
+                    fn = m[1] + (f"<{m[2]}>" if m[2] else "")
                 if "Used" in ln or "spill" in ln:
-                    print(f"ptxas {src}: {ln.strip()}", flush=True)
+                    print(f"ptxas {src} {fn}: {ln.strip()}", flush=True)
         print(json.dumps({"build_s": secs}), flush=True)
 
     def store(self):
@@ -696,7 +704,8 @@ class Smoke:
     def mxu_kernel(self, fam, cols, gid):
         """The tensor-core aggregate on Q1's sum specs (the family's sums
         and the appended count, as the engine routes them), and its corner
-        cases; multiagg.cu timed on the same specs beside it."""
+        cases on both of its paths; both paths timed beside multiagg.cu on
+        the same specs."""
         torch = self.torch
         from mplan2vdl_tpu_torch.engine.kernels import multiagg
         from mplan2vdl_tpu_torch.engine.kernels import multiagg_mxu as mx
@@ -710,59 +719,107 @@ class Smoke:
                 + [f[2] for f in s.factors]}
         rows = torch.arange(n, device=self.dev)
 
+        def path(sp, groups):
+            return "fast" if mx.fast_path(groups, sp) else "general"
+
         def x_case(what, cs, g, sp, groups, **kw):
             got = mx.fused_group_aggregate_mxu(cs, g, sp, groups, **kw)
             want = mx.fused_group_aggregate_mxu_plain(cs, g, sp, groups)
-            e = self.equal(f"multiagg_mxu {what}", got, want)
+            e = self.equal(f"multiagg_mxu {what} ({path(sp, groups)})", got,
+                           want)
             self.max_err["multiagg_mxu"] = max(self.max_err["multiagg_mxu"],
                                                e)
+            return path(sp, groups)
 
+        paths = set()
         x_case(f"Q1 {len(specs)} sum specs n={n}", cols, gid, specs,
                fam.domain)
         gneg = gid.clone()
         gneg[::7] = -5
-        x_case("negative gid rows", cols, gneg, specs, fam.domain)
-        odd = min(1_000_003, n)
-        x_case(f"n={odd} (not a step multiple)", [c[:odd] for c in cols],
-               gid[:odd], specs, fam.domain)
+        gneg[3::7] = fam.domain  # past the last group: skipped too
+        x_case("negative and too-large gid rows", cols, gneg, specs,
+               fam.domain)
+        del gneg
+        # neither a multiple of 4 rows nor of a 128-row warp step
+        for k in (min(1_000_003, n), min(128 * 1000 + 77, n), 3, 100):
+            x_case(f"n={k} (not a step multiple)", [c[:k] for c in cols],
+                   gid[:k], specs, fam.domain)
+        x_case("unaligned views", [c[1:] for c in cols], gid[1:], specs,
+               fam.domain)
+        g16 = (rows * 2654435761 % 16).to(torch.int32)
+        g17 = (rows * 2654435761 % 17).to(torch.int32)
+        paths.add(x_case("16 groups", cols, g16, specs, 16))
+        paths.add(x_case("17 groups", cols, g17, specs, 17))
         g37 = (rows * 2654435761 % 37).to(torch.int32)
-        x_case("37 groups (several group tiles)", cols, g37, specs, 37)
+        paths.add(x_case("37 groups (several group tiles)", cols, g37, specs,
+                         37))
+        del g37
+        for k in (mx.FAST_MAX_SPECS, mx.FAST_MAX_SPECS + 1):
+            many = (specs * 2)[:k]
+            paths.add(x_case(f"{k} sum specs", cols, gid, many, fam.domain))
         # as tests/test_multiagg_mxu.py: base 2^31-1 times 1 + 32766, bits
         # 46; 100,003 rows keep every total below 2^63
         nb = min(100_003, n)
         big = torch.full((nb,), 2**31 - 1, dtype=torch.int32, device=self.dev)
         fac = torch.full((nb,), 32766, dtype=torch.int32, device=self.dev)
-        x_case("values near the bits bound", [big, fac],
-               (rows[:nb] % 3).to(torch.int32),
-               [Spec(base=0, bits=31),
-                Spec(base=0, factors=((1, 1, 1),), bits=46)], 3)
+        near = [Spec(base=0, bits=31),
+                Spec(base=0, factors=((1, 1, 1),), bits=46)]
+        for groups in (3, 17):
+            paths.add(x_case(f"values near the bits bound, {groups} groups",
+                             [big, fac], (rows[:nb] % groups).to(torch.int32),
+                             near, groups))
         # one block over every row, every byte plane 255: without the int32
-        # flush a cell would pass 2^31 after 2^23 rows
+        # flush a cell would pass 2^31 after 2^23 rows of a warp (one warp
+        # takes them all) or of a block (the general path)
         full = [torch.full((n,), v, dtype=torch.int32, device=self.dev)
                 for v in (2**16 - 1, 2**16, 2**24 - 1)]
         ff = [Spec(base=None, factors=((255, 0, 0),), bits=8),
               Spec(base=0, bits=16),
               Spec(base=2, bits=24),
               Spec(base=0, factors=((1, 1, 1),), bits=32)]  # 2^32 - 1
-        x_case(f"one block over {n} rows, every plane 255", full,
-               torch.zeros(n, dtype=torch.int32, device=self.dev), ff, 1,
-               max_blocks=1)
+        zero = torch.zeros(n, dtype=torch.int32, device=self.dev)
+        x_case(f"one block over {n} rows, every plane 255", full, zero, ff,
+               1, max_blocks=1)
+        x_case(f"one warp over {n} rows, every plane 255", full, zero, ff, 1,
+               max_blocks=1, max_warps=1)
+        paths.add(x_case(f"one block over {n} rows, every plane 255, 13 "
+                         "specs", full, zero, (ff * 4)[:13], 1,
+                         max_blocks=1))
+        if paths != {"fast", "general"}:
+            raise AssertionError(f"multiagg_mxu checked only {paths}")
+        del full, zero, big, fac
 
+        nbytes = 4 * (len(used) + 1) * n
+        shape = (f"{len(specs)} Q1 sum specs x {{}} groups over "
+                 f"{len(used)} int32[{n}] columns + int32 gid")
         mx.launches = 0
         ms = self.cuda_ms(lambda: mx.fused_group_aggregate_mxu(
             cols, gid, specs, fam.domain), REPS)
         timed_launches = mx.launches
         plain_ms = self.cuda_ms(lambda: mx.fused_group_aggregate_mxu_plain(
             cols, gid, specs, fam.domain), 2)
-        nbytes = 4 * (len(used) + 1) * n
-        shape = (f"{len(specs)} Q1 sum specs x {fam.domain} groups over "
-                 f"{len(used)} int32[{n}] columns + int32 gid")
-        self.kernel_time("multiagg_mxu", shape, ms, plain_ms, None,
+        self.kernel_time("multiagg_mxu", shape.format(fam.domain) + " ("
+                         f"{path(specs, fam.domain)})", ms, plain_ms, None,
                          _bound_ms(nbytes), timed_launches)
         ms = self.cuda_ms(lambda: multiagg.fused_group_aggregate(
             cols, gid, specs, fam.domain), REPS)
-        self.kernel_time("multiagg on the same sum specs", shape, ms, None,
-                         None, _bound_ms(nbytes), None)
+        self.kernel_time("multiagg on the same sum specs",
+                         shape.format(fam.domain), ms, None, None,
+                         _bound_ms(nbytes), None)
+        # the fast path's largest group count and the general path, hashed
+        # row ids, each beside multiagg.cu on the same specs
+        for groups, g in ((16, g16), (17, g17)):
+            ms = self.cuda_ms(lambda: mx.fused_group_aggregate_mxu(
+                cols, g, specs, groups), REPS)
+            self.kernel_time(f"multiagg_mxu {groups} groups "
+                             f"({path(specs, groups)})", shape.format(groups),
+                             ms, None, None, _bound_ms(nbytes), None)
+            ms = self.cuda_ms(lambda: multiagg.fused_group_aggregate(
+                cols, g, specs, groups), REPS)
+            self.kernel_time(f"multiagg {groups} groups on the same sum "
+                             "specs", shape.format(groups), ms, None, None,
+                             _bound_ms(nbytes), None)
+        del g16, g17
 
     def radix_kernel(self):
         """The digit rank over the lineitem row count rounded up to a block

@@ -16,26 +16,63 @@
 // reference and the group ids once, 4*(c+1)*n bytes; the contraction is
 // planes x groups x n byte products, far below the int8 tensor-core rate.
 //
-// Design.  A row's value is exact in int64 (it is below 2^bits), so the
+// A row's value is exact in 64-bit arithmetic (it is below 2^bits), so the
 // limb multiply, renormalisation, carry plane and lo/hi output split of the
-// TPU kernel have no counterpart: each thread computes the values of four
-// consecutive rows directly and splits each into ceil(bits/8) byte planes.
-// The planes of all specs are stacked (Q1: 2+3+4+5+1+1+1 = 17, padded to 32)
-// and contracted with the rows' one-hot group bytes by mma_u8 (mma_u8.cuh):
+// TPU kernel have no counterpart: each value is split into ceil(bits/8)
+// byte planes directly.  The planes of all specs are stacked (Q1:
+// 2+3+4+5+1+1+1 = 17) and contracted with the rows' one-hot group bytes by
+// mma.sync m16n8k32 u8 x u8 -> s32 (mma_u8.cuh):
 //   partial[plane][group] = sum_rows plane(row) * (gid(row) == group)
-// Per step a block of 128 threads packs 512 rows into shared memory (one
-// word per plane and per group per thread) and each of its 4 warps
-// contracts its 128-row slice into int32 fragments.  Every kFlushSteps steps
-// (2^23 rows of the block, whatever the grid) and at the end the fragments
-// are added into a shared int64 table, so no int32 cell ever holds more
-// than 255 * 2^23 < 2^31.  Last, each (plane, group) cell of the table is
-// shifted by 8 * limb and added to its spec's output with one global atomic:
-// sum_k plane_sum_k << 8k is taken in wrapping 64-bit unsigned arithmetic,
-// exact because the true total is below 2^63 although a shifted plane sum
-// alone may not be.  A block covers 32 planes and 32 groups (grid.y walks
-// the chunks of more planes or groups, so any n_groups works), and reads
-// only the columns its specs reference.  The "max" specs of a family stay
-// with multiagg.cu, as in the JAX engine.
+// The int32 partials are moved into int64 before any cell can pass 2^31,
+// and each (plane, group) cell is shifted by 8 * limb and added to its
+// spec's output with one global atomic per block: sum_k plane_sum_k << 8k
+// is taken in wrapping 64-bit unsigned arithmetic, exact because the true
+// total is below 2^63 although a shifted plane sum alone may not be.  The
+// "max" specs of a family stay with multiagg.cu, as in the JAX engine.
+//
+// Two paths; the wrapper picks one by shape (multiagg_mxu.fast_path):
+//
+// fast_kernel<NS>, the fast path: at most 16 groups (one m16 tile) and at
+// most 12 sum specs, which covers every family fuse.plan_fusions emits.
+// The first design (mxu_kernel below) spent about 6 us on each 512-row
+// block step: every spec loaded its columns from global memory again, the
+// spec, plane and one-hot loops ran over run-time bounds, and two block
+// barriers per step left nothing in flight.  Here
+//   * every warp works alone on 128-row steps (one quad of 4 rows per
+//     lane), so no block barrier is taken until the end.  Each lane copies
+//     its quad of every column the specs use, and of the group ids, into
+//     its own slots of a kStages-deep shared buffer with 16-byte cp.async
+//     (zero-filled past n), kStages - 1 steps ahead; the specs then read
+//     their operands from the staged quads, one shared load per operand;
+//   * the kernel is a template on the spec count and each spec's head
+//     (base slot, factor count, first factor word, first plane, plane
+//     count) sits at a fixed place in the parameters, so the spec loop and
+//     the 4-plane store loops unroll; factor loops stay dynamic (guarded
+//     unrolled blocks were predicated and cost more in multiagg.cu).  A
+//     spec of at most 4 planes is evaluated in 32-bit arithmetic (its
+//     value is below 2^32, and the products are exact modulo 2^32); the
+//     byte planes of 4 rows come from a 4 x 4 byte transpose (8 PRMT);
+//   * the plane words and one word of group-id bytes per quad go to the
+//     warp's own tile, double-buffered so a step needs one __syncwarp.  In
+//     the mma the one-hot is the A operand (16 groups x 32 rows), built in
+//     registers from the group-id words by a bytewise compare (__vcmpeq4),
+//     and the planes are B (8 planes per n8 tile), so Q1 takes 3 mma per
+//     32 rows and no one-hot is stored;
+//   * a warp's int32 fragment cell gains at most 255 per row, so the warp
+//     moves its fragments into the block's shared int64 table every
+//     flush_steps steps, computed by the wrapper so that 255 * 128 *
+//     flush_steps < 2^31 (2^16 steps, 2^23 rows), and at the end.  A block
+//     holds as many warps as its tiles and buffers fit in 227 KB, at most
+//     16; the grid is one wave of resident blocks.
+//
+// mxu_kernel, the general path (more groups or specs): per step a block of
+// 128 threads packs 512 rows into shared memory (one word per plane and per
+// group per thread) and each of its 4 warps contracts its 128-row slice
+// into int32 fragments (mma_u8.cuh's contract_step).  Every kFlushSteps
+// steps (2^23 rows of the block, whatever the grid) and at the end the
+// fragments are added into a shared int64 table.  A block covers 32 planes
+// and 32 groups (grid.y walks the chunks of more planes or groups, so any
+// n_groups works), and reads only the columns its specs reference.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -209,6 +246,296 @@ mxu_kernel(const __grid_constant__ MxuArgs a, const int32_t* __restrict__ gid,
   }
 }
 
+// ------------------------------------------------------------- fast path
+constexpr int kFastMaxSpecs = 12;   // multiagg_mxu.FAST_MAX_SPECS
+constexpr int kFastMaxGroups = 16;  // multiagg_mxu.FAST_MAX_GROUPS: one m16
+constexpr int kFastMaxWarps = 16;
+constexpr int kStages = 3;          // staged steps per warp: 2 in flight
+constexpr int kWarpRows = 128;      // multiagg_mxu.FAST_STEP_ROWS: 32 quads
+// words per tile row: 32 quads + 4, so the fragment loads (8 rows x 4
+// consecutive words) hit 32 distinct banks
+constexpr int kTileStride = kWarpRows / 4 + 4;
+// 227 KB, the most one block may use, less 1 KB the runtime reserves
+constexpr int kSmemMax = 232448 - 1024;
+
+// A spec's head at a fixed place in the parameters.  base: column slot or
+// -1 (count); its nf factors are the (const, sign, slot) triples at
+// words[w..]; it owns planes [plane, plane + nplanes).
+struct FastSpec {
+  int base, nf, w, plane, nplanes;
+};
+
+struct FastArgs {
+  const int32_t* cols[kMaxCols];  // the columns the specs use, by slot
+  int32_t words[kMaxWords];
+  FastSpec specs[kFastMaxSpecs];
+  int ncols;
+  int n_groups;
+  int n_planes;
+  int n_tiles;  // n8 plane tiles: ceil(n_planes / 8)
+  int flush_steps;
+};
+
+// Shared bytes of the fast path: the block's int64 table, and per warp its
+// two plane tiles (8 * n_tiles plane rows + the group-id row) and its
+// kStages stages of one int4 per lane for each column and the group ids.
+__host__ __device__ inline long long fast_table_bytes(int n_tiles) {
+  return 8LL * n_tiles * kFastMaxGroups * 8;
+}
+__host__ __device__ inline long long fast_warp_bytes(int n_tiles, int ncols) {
+  return 2LL * (8 * n_tiles + 1) * kTileStride * 4 +
+         (long long)kStages * (ncols + 1) * 32 * 16;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int bytes) {
+  // bytes < 16 reads that many and zero-fills the rest
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The values of one spec at a lane's 4 staged rows, in U arithmetic
+// (uint32_t when the value is below 2^32, else 64-bit; both exact modulo
+// 2^width).  cur[j * 32] is the lane's staged int4 of column slot j.
+template <typename U>
+__device__ __forceinline__ void spec_values4(const FastArgs& a, int base,
+                                             int nf, int w, const int4* cur,
+                                             U v[4]) {
+  if (base >= 0) {
+    const int4 c = cur[base * 32];
+    v[0] = (U)(long long)c.x;
+    v[1] = (U)(long long)c.y;
+    v[2] = (U)(long long)c.z;
+    v[3] = (U)(long long)c.w;
+  } else {
+    v[0] = v[1] = v[2] = v[3] = 1;
+  }
+  for (int f = 0; f < nf; ++f, w += 3) {
+    const U k0 = (U)(long long)a.words[w], sg = (U)(long long)a.words[w + 1];
+    const int4 c = cur[a.words[w + 2] * 32];
+    v[0] *= k0 + sg * (U)(long long)c.x;
+    v[1] *= k0 + sg * (U)(long long)c.y;
+    v[2] *= k0 + sg * (U)(long long)c.z;
+    v[3] *= k0 + sg * (U)(long long)c.w;
+  }
+}
+
+// Byte planes 0..3 of four 32-bit values: word k holds byte k of v[j] in
+// byte j (a 4 x 4 byte transpose).
+__device__ __forceinline__ void planes4(uint32_t v0, uint32_t v1, uint32_t v2,
+                                        uint32_t v3, uint32_t w[4]) {
+  const uint32_t a = __byte_perm(v0, v1, 0x5140);
+  const uint32_t b = __byte_perm(v0, v1, 0x7362);
+  const uint32_t c = __byte_perm(v2, v3, 0x5140);
+  const uint32_t d = __byte_perm(v2, v3, 0x7362);
+  w[0] = __byte_perm(a, c, 0x5410);
+  w[1] = __byte_perm(a, c, 0x7632);
+  w[2] = __byte_perm(b, d, 0x5410);
+  w[3] = __byte_perm(b, d, 0x7632);
+}
+
+// A row's group-id byte: its group, or 0xff (no group) past n or outside
+// [0, G)
+__device__ __forceinline__ uint32_t gid_byte(int g, bool in, int G) {
+  return in && (unsigned)g < (unsigned)G ? (uint32_t)g : 0xffu;
+}
+
+// The one-hot bytes of group q in a word of 4 group-id bytes (rep: q in
+// every byte)
+__device__ __forceinline__ uint32_t onehot_bytes(uint32_t word, uint32_t rep) {
+  return __vcmpeq4(word, rep) & 0x01010101u;
+}
+
+template <int NS>
+__global__ void __launch_bounds__(kFastMaxWarps * 32, 1)
+fast_kernel(const __grid_constant__ FastArgs a,
+            const int32_t* __restrict__ gid, long long n,
+            unsigned long long* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int W = blockDim.x >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nc = a.ncols, G = a.n_groups, NP = a.n_planes, NT = a.n_tiles;
+  const int rows = 8 * NT + 1;  // plane rows, then the group-id row
+  unsigned long long* acc = reinterpret_cast<unsigned long long*>(smem);
+  uint32_t* tiles = reinterpret_cast<uint32_t*>(smem + fast_table_bytes(NT));
+  int4* stage =
+      reinterpret_cast<int4*>(tiles + (size_t)W * 2 * rows * kTileStride);
+
+  for (int i = tid; i < 8 * NT * kFastMaxGroups; i += blockDim.x) acc[i] = 0;
+  // plane rows past NP stay zero: they are never written
+  for (int i = tid; i < W * 2 * rows * kTileStride; i += blockDim.x)
+    tiles[i] = 0;
+  __syncthreads();
+
+  uint32_t* T = tiles + (size_t)warp * 2 * rows * kTileStride;
+  int4* S = stage + (size_t)warp * kStages * (nc + 1) * 32 + lane;
+  const long long nq = (n + 3) >> 2;
+  const long long steps = (nq + 31) >> 5;
+  const long long stride = (long long)gridDim.x * W;
+  // stage st of this lane's quad of `step`: slot j < nc column j, slot nc
+  // the group ids
+  auto issue = [&](long long step, int st) {
+    const long long q = step * 32 + lane;
+    const long long rem = n - 4 * q;
+    const int bytes = rem >= 4 ? 16 : rem > 0 ? 4 * (int)rem : 0;
+    const long long off = bytes ? 4 * q : 0;
+    int4* dst = S + st * (nc + 1) * 32;
+    for (int j = 0; j < nc; ++j)
+      cp_async16(dst + j * 32, a.cols[j] + off, bytes);
+    cp_async16(dst + nc * 32, gid + off, bytes);
+  };
+
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t rep_lo = (uint32_t)g * 0x01010101u;
+  const uint32_t rep_hi = (uint32_t)(g + 8) * 0x01010101u;
+  int c[NS][4];
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0;
+  // C fragment e of n8 tile j: group g + 8 * (e >> 1), plane 8j + 2t + (e & 1)
+  auto flush = [&]() {
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = g + 8 * (e >> 1), p = 8 * j + 2 * t + (e & 1);
+        if (j < NT && c[j][e] != 0 && q < G && p < NP)
+          atomicAdd(&acc[p * kFastMaxGroups + q],
+                    (unsigned long long)(unsigned)c[j][e]);
+        c[j][e] = 0;
+      }
+  };
+
+  long long step = (long long)blockIdx.x * W + warp;
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (step + i * stride < steps) issue(step + i * stride, i);
+    cp_async_commit();
+  }
+  int st = 0, buf = 0, since = 0;
+  for (; step < steps; step += stride) {
+    const long long ahead = step + (kStages - 1) * stride;
+    if (ahead < steps) issue(ahead, (st + kStages - 1) % kStages);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();  // this step's copies have landed
+    const int4* cur = S + st * (nc + 1) * 32;
+    uint32_t* Tb = T + buf * rows * kTileStride;
+
+    // this lane's quad: group-id bytes, then every spec's plane words
+    const long long rem = n - 4 * (step * 32 + lane);
+    const int4 gq = cur[nc * 32];
+    Tb[8 * NT * kTileStride + lane] =
+        gid_byte(gq.x, rem > 0, G) | gid_byte(gq.y, rem > 1, G) << 8 |
+        gid_byte(gq.z, rem > 2, G) << 16 | gid_byte(gq.w, rem > 3, G) << 24;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      // the head by value: a reference into the parameters would read them
+      // through generic loads
+      const int base = a.specs[s].base, nf = a.specs[s].nf, w = a.specs[s].w;
+      const int npl = a.specs[s].nplanes;
+      uint32_t* dst = Tb + a.specs[s].plane * kTileStride + lane;
+      uint32_t pw[4];
+      if (npl <= 4) {
+        uint32_t v[4];
+        spec_values4<uint32_t>(a, base, nf, w, cur, v);
+        planes4(v[0], v[1], v[2], v[3], pw);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (k < npl) dst[k * kTileStride] = pw[k];
+      } else {
+        unsigned long long v[4];
+        spec_values4<unsigned long long>(a, base, nf, w, cur, v);
+        planes4((uint32_t)v[0], (uint32_t)v[1], (uint32_t)v[2],
+                (uint32_t)v[3], pw);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) dst[k * kTileStride] = pw[k];
+        planes4((uint32_t)(v[0] >> 32), (uint32_t)(v[1] >> 32),
+                (uint32_t)(v[2] >> 32), (uint32_t)(v[3] >> 32), pw);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (k + 4 < npl) dst[(k + 4) * kTileStride] = pw[k];
+      }
+    }
+    // the other buffer was last read a step ago, before the previous
+    // __syncwarp, so one barrier orders both hazards
+    __syncwarp();
+
+    // contract the step: k-steps of 32 rows (8 words)
+    const uint32_t* grow = Tb + 8 * NT * kTileStride;
+#pragma unroll
+    for (int kk = 0; kk < kWarpRows / 4; kk += 8) {
+      const uint32_t w0 = grow[kk + t], w1 = grow[kk + t + 4];
+      // A (one-hot, 16 groups x 32 rows): (g, word t), (g + 8, t),
+      // (g, t + 4), (g + 8, t + 4)
+      const uint32_t A[4] = {
+          onehot_bytes(w0, rep_lo), onehot_bytes(w0, rep_hi),
+          onehot_bytes(w1, rep_lo), onehot_bytes(w1, rep_hi)};
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        if (j < NT) {
+          // B (32 rows x 8 planes): (plane 8j + g, word t), (8j + g, t + 4)
+          const uint32_t* p = Tb + (8 * j + g) * kTileStride + kk + t;
+          const uint32_t B[2] = {p[0], p[4]};
+          m2v::mma_u8(c[j], A, B);
+        }
+      }
+    }
+    st = st + 1 == kStages ? 0 : st + 1;
+    buf ^= 1;
+    if (++since == a.flush_steps) {
+      flush();
+      since = 0;
+    }
+  }
+  cp_async_wait<0>();
+  flush();
+  __syncthreads();
+  for (int i = tid; i < NP * kFastMaxGroups; i += blockDim.x) {
+    const int p = i / kFastMaxGroups, q = i % kFastMaxGroups;
+    const unsigned long long v = acc[i];
+    if (q >= G || v == 0) continue;
+    int s = 0, first = 0;
+#pragma unroll
+    for (int k = 1; k < NS; ++k) {
+      const int pk = a.specs[k].plane;
+      if (p >= pk) {
+        s = k;
+        first = pk;
+      }
+    }
+    atomicAdd(out + (long long)q * NS + s, v << (8 * (p - first)));
+  }
+}
+
+// fast_kernel for a spec count in [1, kFastMaxSpecs]
+const void* fast_fn(int n_specs) {
+  switch (n_specs) {
+    case 1: return (const void*)fast_kernel<1>;
+    case 2: return (const void*)fast_kernel<2>;
+    case 3: return (const void*)fast_kernel<3>;
+    case 4: return (const void*)fast_kernel<4>;
+    case 5: return (const void*)fast_kernel<5>;
+    case 6: return (const void*)fast_kernel<6>;
+    case 7: return (const void*)fast_kernel<7>;
+    case 8: return (const void*)fast_kernel<8>;
+    case 9: return (const void*)fast_kernel<9>;
+    case 10: return (const void*)fast_kernel<10>;
+    case 11: return (const void*)fast_kernel<11>;
+    case 12: return (const void*)fast_kernel<12>;
+  }
+  return nullptr;
+}
+static_assert(kFastMaxSpecs == 12, "fast_fn covers 1 .. kFastMaxSpecs");
+
 }  // namespace
 
 extern "C" {
@@ -270,6 +597,88 @@ int m2v_multiagg_mxu(const void* const* cols, int ncols, const void* gid,
                static_cast<cudaStream_t>(stream)>>>(
       a, static_cast<const int32_t*>(gid), n,
       static_cast<unsigned long long*>(out));
+  return (int)cudaGetLastError();
+}
+
+// The fast path (multiagg_mxu.fast_args builds its inputs).  cols: host
+// array of ncols device pointers to int32[n], the columns the specs use in
+// slot order, 16-byte aligned; gid: int32[n], 16-byte aligned; words:
+// n_words factor words, (const, sign, slot) triples; heads: n_specs x 5
+// ints (base slot or -1, factor count, first factor word, first plane,
+// plane count), planes consecutive from 0, 1 to 8 per spec; flush_steps:
+// warp steps between int32 flushes, 255 * 128 * flush_steps < 2^31;
+// max_blocks > 0 caps the grid and max_warps > 0 the warps per block (test
+// hooks: one warp over many rows exercises the flush); out: zeroed int64
+// [n_groups, n_specs] on the device.
+int m2v_multiagg_mxu_fast(const void* const* cols, int ncols, const void* gid,
+                          long long n, const int* words, int n_words,
+                          const int* heads, int n_specs, int n_groups,
+                          int flush_steps, int max_blocks, int max_warps,
+                          void* out, void* stream) {
+  if (ncols < 0 || ncols > kMaxCols || n_words < 0 || n_words > kMaxWords ||
+      n_specs < 1 || n_specs > kFastMaxSpecs || n_groups < 1 ||
+      n_groups > kFastMaxGroups || n < 0 || flush_steps < 1 ||
+      255LL * kWarpRows * flush_steps >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  FastArgs a = {};
+  for (int j = 0; j < ncols; ++j)
+    a.cols[j] = static_cast<const int32_t*>(cols[j]);
+  for (int i = 0; i < n_words; ++i) a.words[i] = words[i];
+  int planes = 0;
+  for (int s = 0; s < n_specs; ++s) {
+    FastSpec& sp = a.specs[s];
+    sp.base = heads[5 * s];
+    sp.nf = heads[5 * s + 1];
+    sp.w = heads[5 * s + 2];
+    sp.plane = heads[5 * s + 3];
+    sp.nplanes = heads[5 * s + 4];
+    if (sp.base < -1 || sp.base >= ncols || sp.nf < 0 || sp.w < 0 ||
+        sp.w + 3 * sp.nf > n_words || sp.plane != planes || sp.nplanes < 1 ||
+        sp.nplanes > 8)
+      return (int)cudaErrorInvalidValue;
+    for (int f = 0; f < sp.nf; ++f) {
+      const int col = words[sp.w + 3 * f + 2];
+      if (col < 0 || col >= ncols) return (int)cudaErrorInvalidValue;
+    }
+    planes += sp.nplanes;
+  }
+  a.ncols = ncols;
+  a.n_groups = n_groups;
+  a.n_planes = planes;
+  a.n_tiles = (planes + 7) / 8;
+  a.flush_steps = flush_steps;
+  if (n == 0) return (int)cudaGetLastError();
+
+  const long long per_warp = fast_warp_bytes(a.n_tiles, ncols);
+  long long warps = (kSmemMax - fast_table_bytes(a.n_tiles)) / per_warp;
+  if (warps > kFastMaxWarps) warps = kFastMaxWarps;
+  if (max_warps > 0 && max_warps < warps) warps = max_warps;
+  if (warps < 1) return (int)cudaErrorInvalidValue;
+  const int threads = (int)warps * 32;
+  const size_t shmem = (size_t)(fast_table_bytes(a.n_tiles) + warps * per_warp);
+  const void* fn = fast_fn(n_specs);
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return (int)e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, fn, threads, shmem)) != cudaSuccess)
+    return (int)e;
+  const long long steps = ((n + 3) / 4 + 31) / 32;
+  long long blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  if (max_blocks > 0 && max_blocks < blocks) blocks = max_blocks;
+  const long long want = (steps + warps - 1) / warps;
+  if (want < blocks) blocks = want;
+  const int32_t* g = static_cast<const int32_t*>(gid);
+  unsigned long long* o = static_cast<unsigned long long*>(out);
+  void* args[] = {&a, &g, &n, &o};
+  e = cudaLaunchKernel(fn, dim3((unsigned)blocks), dim3(threads), args, shmem,
+                       static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

@@ -12,9 +12,11 @@ arithmetic gives the exact int64 sum, because the true total is below 2^63.
 
 On CUDA tensors ``fused_group_aggregate_mxu`` launches the hand-written
 kernel in ``csrc/multiagg_mxu.cu`` (``mma.sync`` u8 x u8 -> s32, int32
-fragments flushed into int64 every 2^23 rows of a block; see the note
-there); on CPU tensors it runs ``fused_group_aggregate_mxu_plain``, the
-plain version, which computes the same planes.  Replaces
+fragments flushed into int64 before 2^23 rows; see the note there): the
+warp-local fast path for the families the engine fuses (``fast_path``),
+the block-step general path for the rest.  On CPU tensors it runs
+``fused_group_aggregate_mxu_plain``, the plain version, which computes the
+same planes.  Replaces
 ``mplan2vdl_tpu/engine/kernels/multiagg_mxu.py:fused_group_aggregate_mxu``
 with the same contract: int64 ``out[n_groups, n_specs]``, "sum" specs only
 (a family's "max" specs stay with ``multiagg.fused_group_aggregate``).  The
@@ -27,7 +29,7 @@ the contraction has one layout.
 from __future__ import annotations
 
 import os
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -38,6 +40,19 @@ LIMB_BITS = 8
 
 # kernel launches made by fused_group_aggregate_mxu (callers reset it)
 launches = 0
+
+# The fast path's reach (csrc/multiagg_mxu.cu, fast_kernel): one m16 tile
+# of groups, which every family ``fuse.plan_fusions`` emits fits
+# (``fuse.MAX_DOMAIN`` = 16), and one kernel per sum-spec count up to 12
+# (Q1: 7 with the appended count).
+FAST_MAX_GROUPS = 16
+FAST_MAX_SPECS = 12
+# rows of one warp step (32 lanes x a quad of 4 rows), and the rows after
+# which an int32 fragment cell must be moved into int64: it gains at most
+# 255 per row, and 255 * 2^23 < 2^31
+FAST_STEP_ROWS = 128
+FLUSH_ROWS = 1 << 23
+FLUSH_STEPS = FLUSH_ROWS // FAST_STEP_ROWS
 
 
 def mxu_agg_on() -> bool:
@@ -53,6 +68,37 @@ def plane_offsets(specs: Sequence[AggSpec]) -> List[int]:
     for s in specs:
         off.append(off[-1] + max(1, -(-s.bits // LIMB_BITS)))
     return off
+
+
+def fast_path(n_groups: int, specs: Sequence[AggSpec]) -> bool:
+    """Whether a call takes the kernel's fast path (warp-local steps, the
+    one-hot built in registers) rather than its general path (block steps
+    over chunks of 32 planes x 32 groups)."""
+    return n_groups <= FAST_MAX_GROUPS and len(specs) <= FAST_MAX_SPECS
+
+
+def fast_args(specs: Sequence[AggSpec]
+              ) -> Tuple[List[int], List[int], List[Tuple[int, ...]]]:
+    """The fast path's inputs: the columns the specs use, in order of first
+    use (the kernel reads only these, by slot); the factor words, one
+    (const, sign, slot) triple per factor; and one head per spec, (base
+    slot or -1, factor count, first factor word, first plane, plane
+    count), its planes those of ``plane_offsets``."""
+    slot: dict = {}
+
+    def use(col: int) -> int:
+        return slot.setdefault(col, len(slot))
+
+    off = plane_offsets(specs)
+    words: List[int] = []
+    heads = []
+    for i, s in enumerate(specs):
+        base = -1 if s.base is None else use(s.base)
+        w = len(words)
+        for c, sign, col in s.factors:
+            words += [c, sign, use(col)]
+        heads.append((base, len(s.factors), w, off[i], off[i + 1] - off[i]))
+    return list(slot), words, heads
 
 
 def _check(cols, gid, specs):
@@ -112,18 +158,19 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def fused_group_aggregate_mxu(cols: Sequence[torch.Tensor], gid: torch.Tensor,
                               specs: Sequence[AggSpec], n_groups: int,
-                              *, max_blocks: int = 0) -> torch.Tensor:
+                              *, max_blocks: int = 0,
+                              max_warps: int = 0) -> torch.Tensor:
     """[n_groups, n_specs] exact int64 sums.
 
     ``cols``: int32 row vectors (only those the specs reference are read);
     ``gid``: int32 group ids, every masked-out row negative.  Every spec
     must be a "sum" whose values lie in ``[0, 2^bits)``.  ``max_blocks`` > 0
-    caps the kernel's grid (one block over many rows exercises its int32
-    flush); it does not change the result."""
+    caps the kernel's grid, and ``max_warps`` > 0 the fast path's warps per
+    block (one block, or one warp, over many rows exercises the int32
+    flush); neither changes the result."""
     global launches
     cols, specs = list(cols), list(specs)
     _check(cols, gid, specs)
-    words = spec_words(specs)
     if gid.device.type == "cpu":
         return fused_group_aggregate_mxu_plain(cols, gid, specs, n_groups)
     if gid.device.type != "cuda":
@@ -133,11 +180,21 @@ def fused_group_aggregate_mxu(cols: Sequence[torch.Tensor], gid: torch.Tensor,
     out = torch.zeros((n_groups, len(specs)), dtype=torch.int64,
                       device=gid.device)
     lib = _lib.lib()
-    rc = lib.m2v_multiagg_mxu(_lib.ptrs(cols), len(cols), gid.data_ptr(),
-                              gid.shape[0], _lib.ints(words), len(words),
-                              len(specs), _lib.ints(plane_offsets(specs)),
-                              n_groups, max_blocks, out.data_ptr(),
-                              _lib.stream(gid))
+    if fast_path(n_groups, specs):
+        used, fwords, heads = fast_args(specs)
+        rc = lib.m2v_multiagg_mxu_fast(
+            _lib.ptrs([cols[i] for i in used]), len(used), gid.data_ptr(),
+            gid.shape[0], _lib.ints(fwords), len(fwords),
+            _lib.ints([x for h in heads for x in h]), len(specs), n_groups,
+            FLUSH_STEPS, max_blocks, max_warps, out.data_ptr(),
+            _lib.stream(gid))
+    else:
+        words = spec_words(specs)
+        rc = lib.m2v_multiagg_mxu(
+            _lib.ptrs(cols), len(cols), gid.data_ptr(), gid.shape[0],
+            _lib.ints(words), len(words), len(specs),
+            _lib.ints(plane_offsets(specs)), n_groups, max_blocks,
+            out.data_ptr(), _lib.stream(gid))
     _lib.check(rc, "multiagg_mxu")
     launches += 1
     return out

@@ -4,7 +4,7 @@ For a domain of at most ``SMALL_DOMAIN`` ids the engine reduces once per
 group id under a mask, as the JAX module does: on the GPU each masked
 reduction is one tree reduction over the input with no atomics, so a
 single-group sum (Q6) never funnels every row into one address.  Larger
-domains take the sort-based path (not ported yet)."""
+domains take the engine's sort-based path (``engine/lower.py``)."""
 
 from __future__ import annotations
 

@@ -437,13 +437,23 @@ def _mxu_near_bound():
     return cols, gid, specs, groups
 
 
+def _mxu_specs(seed, n, k):
+    """The Q1-shaped family's specs repeated to ``k`` sum specs."""
+    cols, gid, specs, groups = _mxu_q1(seed, n, 8)
+    return cols, gid, (specs * 3)[:k], groups
+
+
 MXU_CASES = {"q1-shape": lambda: _mxu_q1(0, 60_000, 4),
              "odd-tail": lambda: _mxu_q1(1, 30_001, 7),
              "near-bits-bound": _mxu_near_bound,
              **{f"fuzz-{seed}": (lambda seed=seed: _mxu_q1(
                  seed, 17_000 + seed * 997, 2 + seed % 6))
                 for seed in range(4, 10)},
-             "groups-37": lambda: _mxu_q1(11, 20_000, 37)}
+             "groups-37": lambda: _mxu_q1(11, 20_000, 37),
+             "groups-16": lambda: _mxu_q1(12, 20_001, 16),
+             "groups-17": lambda: _mxu_q1(13, 20_003, 17),
+             "specs-12": lambda: _mxu_specs(14, 10_001, 12),
+             "specs-13": lambda: _mxu_specs(15, 10_003, 13)}
 
 
 @pytest.mark.parametrize("case", list(MXU_CASES))
@@ -462,6 +472,103 @@ def test_mxu_aggregate_matches_jax(case):
     assert got.dtype == torch.int64 and got.shape == (groups, len(specs))
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def _fast_path_model(cols, gid, specs, groups):
+    """numpy statement of what the kernel's fast path computes from the
+    wrapper's fast_args: each spec's value in 32-bit arithmetic when it has
+    at most 4 byte planes (exact modulo 2^32), else 64-bit; its byte
+    planes contracted with the one-hot of the group id in int32 partial
+    sums over FLUSH_STEPS warp steps; then sum_k plane_k << 8k, wrapping."""
+    used, words, heads = tmxu.fast_args(specs)
+    staged = [np.asarray(cols[i]) for i in used]
+    n = len(gid)
+    onehot = (np.asarray(gid)[:, None] == np.arange(groups)).astype(np.int64)
+    flush = tmxu.FLUSH_STEPS * tmxu.FAST_STEP_ROWS
+    out = np.zeros((groups, len(specs)), np.uint64)
+    for s, (base, nf, w, plane, nplanes) in enumerate(heads):
+        u, width = (np.uint32, 32) if nplanes <= 4 else (np.uint64, 64)
+        v = (np.ones(n, u) if base < 0
+             else staged[base].astype(np.int64).astype(u))
+        for f in range(nf):
+            c, sign, slot = words[w + 3 * f: w + 3 * f + 3]
+            v = v * (u(c % 2**width) + u(sign % 2**width)
+                     * staged[slot].astype(np.int64).astype(u))
+        for k in range(nplanes):
+            byte = ((v >> u(8 * k)) & u(0xFF)).astype(np.int64)
+            for r0 in range(0, n, flush):
+                part = byte[r0:r0 + flush] @ onehot[r0:r0 + flush]
+                assert part.max(initial=0) < 2**31
+                out[:, s] += part.astype(np.uint64) << np.uint64(8 * k)
+    return out.view(np.int64)
+
+
+@pytest.mark.parametrize("case", ["q1-shape", "odd-tail", "near-bits-bound",
+                                  "groups-16", "specs-12"])
+def test_mxu_fast_path_arithmetic(case):
+    """The fast path's arithmetic (32-bit values for specs of at most 4
+    planes, the wrapper's column slots, factor words and heads) against the
+    plain version."""
+    cols, gid, specs, groups = MXU_CASES[case]()
+    specs = [tmultiagg.AggSpec(**s) for s in specs]
+    assert tmxu.fast_path(groups, specs)
+    want = tmxu.fused_group_aggregate_mxu_plain(
+        [torch.from_numpy(c) for c in cols], torch.from_numpy(gid), specs,
+        groups)
+    np.testing.assert_array_equal(_fast_path_model(cols, gid, specs, groups),
+                                  want.numpy())
+
+
+def test_mxu_fast_args_layout():
+    """What the wrapper computes for the fast path: the used columns in
+    order of first use, the factor triples renumbered to their slots, the
+    per-spec heads at the planes of plane_offsets, and a flush interval
+    that keeps every int32 fragment cell below 2^31."""
+    S = tmultiagg.AggSpec
+    specs = [S(base=3, bits=13),
+             S(base=5, factors=((100, -1, 4), (100, 1, 3)), bits=41),
+             S(base=None, bits=1),
+             S(base=None, factors=((7, 1, 4),), bits=12),
+             S(base=5, bits=64)]
+    used, words, heads = tmxu.fast_args(specs)
+    assert used == [3, 5, 4]
+    assert words == [100, -1, 2, 100, 1, 0, 7, 1, 2]
+    assert tmxu.plane_offsets(specs) == [0, 2, 8, 9, 11, 19]
+    assert heads == [(0, 0, 0, 0, 2), (1, 2, 0, 2, 6), (-1, 0, 6, 8, 1),
+                     (-1, 1, 6, 9, 2), (1, 0, 9, 11, 8)]
+    assert all(1 <= h[4] <= 8 for h in heads)
+    # a cell gains at most 255 per row of a warp step
+    assert tmxu.FAST_STEP_ROWS == 32 * 4
+    assert tmxu.FLUSH_STEPS * tmxu.FAST_STEP_ROWS == tmxu.FLUSH_ROWS
+    assert 255 * tmxu.FAST_STEP_ROWS * tmxu.FLUSH_STEPS < 2**31
+    assert tmxu.fast_args([S(base=None, bits=1)]) == ([], [],
+                                                      [(-1, 0, 0, 0, 1)])
+
+
+def test_mxu_fast_path_takes_every_engine_family(monkeypatch):
+    """The tensor-core kernel's fast path takes every sum family that
+    fuse.plan_fusions can emit at Q1's shape under the MXU routing (the
+    family's sums with the appended count), at 1 to fuse.MAX_DOMAIN
+    groups; 17 groups and 13 sum specs take the general path."""
+    import chip_smoke
+    from mplan2vdl_tpu_torch.engine import datagen, fuse, lower
+
+    assert tmxu.FAST_MAX_GROUPS == fuse.MAX_DOMAIN
+    st = datagen.generate(sf=0.01, seed=7)
+    monkeypatch.setenv("MPLAN2VDL_FUSED_AGG", "1")
+    cq = lower.compile_plan_text(chip_smoke.PLAN_Q1, st.make_catalog(), st,
+                                 device="cpu")
+    (fam,) = cq.families
+    specs = list(fam.specs) + [tmultiagg.AggSpec(base=None, bits=1)]
+    sums = [s for s in specs if s.op == "sum"]
+    assert (fam.domain, len(sums), tmxu.plane_offsets(sums)[-1]) == (8, 7,
+                                                                     17)
+    for groups in range(1, fuse.MAX_DOMAIN + 1):
+        for k in range(1, len(sums) + 1):
+            assert tmxu.fast_path(groups, sums[:k]), (groups, k)
+    assert not tmxu.fast_path(fuse.MAX_DOMAIN + 1, sums)
+    assert not tmxu.fast_path(8, (sums * 2)[:tmxu.FAST_MAX_SPECS + 1])
+    assert tmxu.fast_path(16, (sums * 2)[:tmxu.FAST_MAX_SPECS])
 
 
 def test_mxu_aggregate_refuses_max_specs():
