@@ -17,9 +17,13 @@ Phases (any failure ends the run with a nonzero exit; nothing is caught):
      paths, with negative and too-large group ids, row counts that are no
      step multiple, unaligned views, 16, 17 and 37 groups, 12 and 13 specs,
      values near the bits bound, and one block (and one warp) over every
-     row; the digit rank at 4 and 8 bits over random, all-equal and
-     ascending keys), and times kernel, plain version and library
-     yardstick with CUDA events;
+     row; the scatter over every case of the CPU tests, the edges of its
+     tiles and chunks, 2%, 15% and 100% of an orders-sized table, one row,
+     no valid row, L = 0, and a few rows into just over 2^31 slots; the
+     digit rank at every width from 1 to 8 bits over random, all-equal,
+     ascending and alternating keys and keys whose digit changes at each
+     warp's run), and times kernel, plain version and library yardstick
+     with CUDA events (the scatter at 2%, 15% and 100%);
   4. drives the port end to end through ``plan_to_vexps`` +
      ``CompiledQuery`` on ``cuda``: TPC-H Q6, Q1 (fused by the automatic
      gate, with its sums on the tensor cores by MPLAN2VDL_MXU_AGG=1, and
@@ -27,7 +31,8 @@ Phases (any failure ends the run with a nonzero exit; nothing is caught):
      FK-join path: TPC-H Q3 (no-order form), Q5 and a sparse group-by over
      l_orderkey.  Each run is row-exact against its oracle, and the engine
      kernels' launch counters are read around it (Q6 and every Q1 run
-     must compact; the fused Q1 runs launch the fused aggregate once);
+     must compact; the fused Q1 runs launch the fused aggregate once),
+     and the shape of each engine scatter (Q3's and Q5's) is printed;
      ``--profile`` adds each engine kernel's device time per query;
   5. the probes: ``tools.probe_kernels`` (every pattern probe OK, each
      kernel equal to its plain version, timed) and ``tools.probe_radix``
@@ -306,6 +311,98 @@ def oracle_sparse_groupby(st):
                    (qty, np.maximum), (np.ones(len(qty), np.int64), np.add)])
 
 
+# ------------------------------------------------------ scatter cases
+# numpy (id, pos, src, L) cases of the monotone scatter, the single copy
+# tests/test_torch_kernels.py imports
+def scatter_cases():
+    """The cases of tests/test_scatter_kernel.py."""
+    import numpy as np
+
+    out = []
+    for seed in (0, 1):
+        for density in (0.02, 0.3, 0.9, 1.0):
+            rng = np.random.default_rng(seed)
+            L = int(rng.integers(2000, 40000))
+            pos = np.flatnonzero(rng.random(L) < density).astype(np.int32)
+            src = rng.integers(1, 2**20, len(pos)).astype(np.int32)
+            out.append((f"random-{density}-{seed}", pos, src, L))
+    L = 3 * 8192
+    spreads = [
+        np.array([0, 1], np.int32),
+        np.arange(100, dtype=np.int32) * 200,
+        np.concatenate([np.arange(50), L - 50 + np.arange(50)]
+                       ).astype(np.int32),
+        np.array([8191, 8192], np.int32),
+        np.array([8190, 8191, 8192, 8193, 16383, 16384], np.int32),
+    ]
+    rng = np.random.default_rng(9)
+    for i, pos in enumerate(spreads):
+        src = rng.integers(1, 1000, len(pos)).astype(np.int32)
+        out.append((f"spread-{i}", pos, src, L))
+    out.append(("lsb-first-counterexample", np.array([1, 3], np.int32),
+                np.array([7, 9], np.int32), L))
+    out.append(("invalid-tail", np.array([5, 17, 9000, 10000, 10000, 10000],
+                                         np.int32),
+                np.arange(1, 7, dtype=np.int32), 10000))
+    for seed in (0, 1, 2):
+        rng = np.random.default_rng(seed)
+        L = int(rng.integers(8192 + 1, 8192 * 4 - 1))
+        n_valid = int(rng.integers(100, 4000))
+        pos_valid = np.sort(rng.choice(L, n_valid, replace=False))
+        n_invalid = int(rng.integers(2, 12000))
+        pos = np.concatenate([pos_valid, np.full(n_invalid, L)]
+                             ).astype(np.int32)
+        src = rng.integers(1, 2**20, len(pos)).astype(np.int32)
+        out.append((f"invalid-cluster-at-L-{seed}", pos, src, L))
+    out.append(("valid-past-L", np.array([5, 9000, 10500, 12000, 16383,
+                                          16385], np.int32),
+                np.arange(1, 7, dtype=np.int32), 10000))
+    rng = np.random.default_rng(3)
+    L = 9000
+    pos = np.sort(rng.choice(L, 500, replace=False)).astype(np.int32)
+    out.append(("int64", pos, rng.integers(-2**60, 2**60, 500)
+                .astype(np.int64), L))
+    L = 16384
+    out.append(("identity", np.arange(L, dtype=np.int32),
+                np.arange(L, dtype=np.int32) * 3 + 1, L))
+    return out
+
+
+def scatter_edge_cases(tile, chunk):
+    """Cases at the edges of scatter.cu's design: its output tiles of
+    ``tile`` slots and its walk's chunks of ``chunk`` rows, over 3 tiles
+    and a 100-slot tail tile."""
+    import numpy as np
+
+    T, C = tile, chunk
+    L = 3 * T + 100
+    rng = np.random.default_rng(11)
+    cases = {
+        "tile-edges": [T - 1, T, T + 1, 2 * T - 1, 2 * T, 3 * T - 1, 3 * T,
+                       L - 1],
+        "run-ends-on-tile-last-slot": np.arange(T - 300, T),
+        "run-ends-on-tile-last-slot-then-next": np.r_[np.arange(T - 300, T),
+                                                      2 * T + 7],
+        "chunk-exact": T + np.arange(C) * 4,
+        "chunk-plus-one": T + np.arange(C + 1) * 3,
+        "two-chunks-exact": T + np.arange(2 * C) * 2,
+        "full-tile": np.r_[np.arange(T, 2 * T), 2 * T + 5],
+        "full-tile-minus-one": np.r_[np.arange(T, 2 * T - 1), 2 * T + 5],
+        "full-output": np.arange(L),
+        "tail-tile-only": [3 * T, 3 * T + 50, L - 1, L, L],
+        "first-slot-only": [0, L, L + 9],
+        "last-slot-only": [L - 1],
+        "all-invalid": np.full(3000, L),
+        "sparse-over-tiles": np.sort(rng.choice(L, 40, replace=False)),
+    }
+    out = []
+    for name, pos in cases.items():
+        pos = np.asarray(pos, np.int32)
+        src = rng.integers(1, 2**30, len(pos)).astype(np.int32)
+        out.append((f"edge-{name}", pos, src, L))
+    return out
+
+
 def same_rows(got, want) -> bool:
     """Whether two column lists hold the same rows, in any order."""
     import numpy as np
@@ -395,8 +492,10 @@ class Smoke:
             if g.shape != w.shape or g.dtype != w.dtype:
                 raise AssertionError(f"{what}: {g.dtype}{tuple(g.shape)} vs "
                                      f"plain {w.dtype}{tuple(w.shape)}")
-            if g.numel():
-                err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
+            g, w = g.reshape(-1), w.reshape(-1)
+            for a in range(0, g.numel(), 1 << 27):  # bounded temporaries
+                err = max(err, int((g[a:a + (1 << 27)].to(torch.int64)
+                                    - w[a:a + (1 << 27)].to(torch.int64))
                                    .abs().max()))
         self.sync()
         print(json.dumps({"check": what, "max_abs_err": err}), flush=True)
@@ -823,8 +922,10 @@ class Smoke:
 
     def radix_kernel(self):
         """The digit rank over the lineitem row count rounded up to a block
-        of random 24-bit keys (the sparse group-by's key count), and over
-        all-equal and ascending keys; torch.sort timed beside it."""
+        (the sparse group-by's key count) at every digit width, 1 to 8
+        bits, over random 24-bit, all-equal, ascending and alternating
+        keys, and keys whose digit changes at each warp's 1024-key run;
+        timed on the random keys with torch.sort beside it."""
         torch = self.torch
         from mplan2vdl_tpu_torch.engine.kernels import radix_rank as rr
 
@@ -832,19 +933,23 @@ class Smoke:
         gen = torch.Generator(device=self.dev).manual_seed(self.args.seed + 2)
         keys = torch.randint(0, 1 << 24, (n,), generator=gen,
                              device=self.dev, dtype=torch.int32)
+        i = torch.arange(n, dtype=torch.int32, device=self.dev)
         sets = (("random 24-bit", keys),
                 ("all-equal", torch.full((n,), 0xABCDEF, dtype=torch.int32,
                                          device=self.dev)),
-                ("ascending", torch.arange(n, dtype=torch.int32,
-                                           device=self.dev)))
-        for nbits in (4, 8):
+                ("ascending", i),
+                # two digits that differ in every bit
+                ("alternating", torch.where(i % 2 == 0, 0x5A5A5A5A,
+                                            0x25A5A5A5).to(torch.int32)),
+                ("warp-boundary", i // rr.WARP_KEYS))
+        for nbits in range(1, 9):
             for what, x in sets:
                 got = rr.radix_rank(x, nbits)
                 e = self.equal(f"radix_rank nbits={nbits} {what} keys n={n}",
                                got, rr.radix_rank_plain(x, nbits))
                 self.max_err["radix_rank"] = max(self.max_err["radix_rank"],
                                                  e)
-        del sets
+        del sets, i
         for nbits, name in ((4, "radix_rank nbits=4"), (8, "radix_rank")):
             rr.launches = 0
             ms = self.cuda_ms(lambda: rr.radix_rank(keys, nbits), REPS)
@@ -860,55 +965,89 @@ class Smoke:
                          None, _bound_ms(n * (4 + 4 + 8)), None)
 
     def scatter_kernel(self):
-        """The monotone scatter into the slots of an orders-sized table,
-        at the densities of Q3's and Q5's mask-deduction scatters."""
+        """The monotone scatter: every case of the CPU tests and the edges
+        of its tiles and chunks, exact against the plain version; then the
+        slots of an orders-sized table at 2%, 15% (the density of Q3's and
+        Q5's mask-deduction scatters) and 100%, the edge cases there, and
+        a few rows into just over 2^31 slots; times at the three
+        densities."""
         torch = self.torch
         from mplan2vdl_tpu_torch.engine.kernels import compact, scatter
 
-        L = self.n_orders
-        slots = torch.arange(L, device=self.dev)
-        m15 = (slots * 2654435761 % 100) < 15
-        c15 = int(m15.sum())
-        p15 = compact.compact_positions(m15, c15)
-        pall = slots.to(torch.int32)
-        gen = torch.Generator(device=self.dev).manual_seed(self.args.seed)
+        dev = self.dev
 
-        def rand(k, dtype):
-            bits = 62 if dtype == torch.int64 else 30
-            return torch.randint(-(1 << bits), 1 << bits, (k,),
-                                 generator=gen, device=self.dev, dtype=dtype)
-
-        def s_case(what, p, src):
+        def s_case(what, p, src, L):
             got = scatter.monotone_scatter(p, src, L)
             want = scatter.monotone_scatter_plain(p, src, L)
             e = self.equal(f"scatter {what}", got, want)
             self.max_err["scatter"] = max(self.max_err["scatter"], e)
 
+        for what, p, src, L in (scatter_cases() + scatter_edge_cases(
+                scatter.TILE, scatter.CHUNK)):
+            s_case(f"{what} L={L}", torch.from_numpy(p).to(dev),
+                   torch.from_numpy(src).to(dev), L)
+
+        L = self.n_orders
+        slots = torch.arange(L, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(self.args.seed)
+
+        def positions(percent):
+            m = (slots * 2654435761 % 100) < percent
+            return compact.compact_positions(m, int(m.sum()))
+
+        def rand(k, dtype):
+            bits = 62 if dtype == torch.int64 else 30
+            return torch.randint(-(1 << bits), 1 << bits, (k,),
+                                 generator=gen, device=dev, dtype=dtype)
+
+        p2, p15 = positions(2), positions(15)
+        c2, c15 = p2.shape[0], p15.shape[0]
+        pall = slots.to(torch.int32)
         s32 = rand(c15, torch.int32)
-        s_case(f"L={L} 15% int32", p15, s32)
-        s_case(f"L={L} 15% int64", p15, rand(c15, torch.int64))
-        s_case(f"L={L} 100% int32", pall, rand(L, torch.int32))
+        s_case(f"L={L} 2% int32", p2, rand(c2, torch.int32), L)
+        s_case(f"L={L} 15% int32", p15, s32, L)
+        s_case(f"L={L} 15% int64", p15, rand(c15, torch.int64), L)
+        s_case(f"L={L} 100% int32", pall, rand(L, torch.int32), L)
         s_case(f"L={L} 100% int64, int64 positions", slots,
-               rand(L, torch.int64))
+               rand(L, torch.int64), L)
         tail = p15.clone()
         tail[c15 // 2:] = L
-        s_case("invalid tail mapped to L", tail, s32)
-        s_case("n=0", p15[:0], s32[:0])
+        s_case(f"L={L} 15%, invalid tail mapped to L", tail, s32, L)
+        s_case(f"L={L} n=0", p15[:0], s32[:0], L)
+        s_case(f"L={L} one valid row at L-1", torch.tensor(
+            [L - 1], dtype=torch.int32, device=dev), s32[:1], L)
+        s_case(f"L={L} all {c15} rows invalid", torch.full_like(p15, L),
+               s32, L)
+        s_case("L=0", p15, s32, 0)
+        # int64 positions past 2^31 (the engine's pdt for L > INT32_MAX):
+        # an int32 output of 8.6 GB, rows at its ends and around 2^31
+        big = (1 << 31) + 5
+        pbig = torch.tensor([0, 5, (1 << 31) - 1, 1 << 31, big - 1, big,
+                             big + 3], dtype=torch.int64, device=dev)
+        s_case(f"L={big} int64 positions, int32 source", pbig,
+               rand(pbig.shape[0], torch.int32), big)
+        self.sync()
+        del pbig
+        torch.cuda.empty_cache()
 
-        scatter.launches = 0
-        ms = self.cuda_ms(lambda: scatter.monotone_scatter(p15, s32, L),
-                          REPS)
-        timed_launches = scatter.launches
-        plain_ms = self.cuda_ms(
-            lambda: scatter.monotone_scatter_plain(p15, s32, L), REPS)
-        p64 = p15.long()
-        lib_ms = self.cuda_ms(lambda: torch.zeros(
-            L, dtype=s32.dtype, device=self.dev).index_copy_(0, p64, s32),
-            REPS)
-        self.kernel_time("scatter", f"int32[{c15}] at ascending int32 "
-                         f"positions into int32[{L}] (15%)", ms, plain_ms,
-                         lib_ms, _bound_ms(c15 * (4 + 4) + 4 * L),
-                         timed_launches)
+        for name, p, src in (("scatter", p15, s32),
+                             ("scatter 2%", p2, rand(c2, torch.int32)),
+                             ("scatter 100%", pall, rand(L, torch.int32))):
+            c = p.shape[0]
+            scatter.launches = 0
+            ms = self.cuda_ms(lambda: scatter.monotone_scatter(p, src, L),
+                              REPS)
+            timed_launches = scatter.launches
+            plain_ms = self.cuda_ms(
+                lambda: scatter.monotone_scatter_plain(p, src, L), REPS)
+            p64 = p.long()
+            lib_ms = self.cuda_ms(lambda: torch.zeros(
+                L, dtype=src.dtype, device=dev).index_copy_(0, p64, src),
+                REPS)
+            self.kernel_time(name, f"int32[{c}] at ascending int32 "
+                             f"positions into int32[{L}] "
+                             f"({100 * c / L:.1f}%)", ms, plain_ms, lib_ms,
+                             _bound_ms(c * (4 + 4) + 4 * L), timed_launches)
 
     def small_gather_kernel(self):
         """The small-table gather at lineitem-many random positions into
@@ -1004,6 +1143,8 @@ class Smoke:
 
         import numpy as np
 
+        from mplan2vdl_tpu_torch.engine import lower
+        from mplan2vdl_tpu_torch.engine.kernels import scatter
         from mplan2vdl_tpu_torch.engine.lower import CompiledQuery, \
             fused_agg_on, plan_to_vexps
         from mplan2vdl_tpu_torch.oracle import tpch
@@ -1072,6 +1213,22 @@ class Smoke:
                   ("compact", "gather"))]
         total = {k: 0 for k in counters}
         os.environ.pop("MPLAN2VDL_MXU_AGG", None)
+        # the engine's scatter calls of each query's first run: shapes and
+        # in-range rows, for their bounds
+        scatters = {}
+
+        def record_scatter(query):
+            def call(p, src, L):
+                valid = int(((p >= 0) & (p < L)).sum())
+                scatters.setdefault(query, []).append({
+                    "n": p.shape[0], "valid": valid, "L": L,
+                    "pos": str(p.dtype), "src": str(src.dtype),
+                    "bound_ms": _bound_ms(p.shape[0] * p.element_size()
+                                          + valid * src.element_size()
+                                          + L * src.element_size())})
+                return scatter.monotone_scatter(p, src, L)
+            return call
+
         for name, plan, fused, check, must in runs:
             if fused is None:
                 os.environ.pop("MPLAN2VDL_FUSED_AGG", None)
@@ -1088,7 +1245,11 @@ class Smoke:
             load_ms = (time.perf_counter() - t0) * 1e3
             for mod, attr in counters.values():
                 setattr(mod, attr, 0)
-            res = cq()
+            lower.monotone_scatter = record_scatter(name)
+            try:
+                res = cq()
+            finally:
+                lower.monotone_scatter = scatter.monotone_scatter
             launches = {k: getattr(mod, attr)
                         for k, (mod, attr) in counters.items()}
             for k in total:
@@ -1133,6 +1294,8 @@ class Smoke:
             os.environ.pop("MPLAN2VDL_MXU_AGG", None)
             del cq
         self.launches = total
+        self.records["engine_scatters"] = scatters
+        print(json.dumps({"engine_scatters": scatters}), flush=True)
         if self.args.profile:
             dev = {k: [0, 0.0] for k in counters}
             for rec in self.records["queries"]:

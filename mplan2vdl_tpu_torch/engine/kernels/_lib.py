@@ -58,6 +58,7 @@ _SIGNATURES = {
     "m2v_probe_transpose": ([_P, _I, _I, _P, _P], _I),
     "m2v_radix_rank": ([_P, _P, _L, _I, _P], _I),
     "m2v_scatter": ([_P, _I, _P, _I, _P, _L, _L, _P], _I),
+    "m2v_scatter_tile": ([], _I),
     "m2v_small_gather": ([_P, _P, _P, _I, _P, _I, _L, _L, _P], _I),
     "m2v_small_gather_max_sources": ([], _I),
     "m2v_small_gather_smem_budget": ([], _I),

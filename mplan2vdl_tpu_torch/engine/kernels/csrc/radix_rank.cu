@@ -12,19 +12,29 @@
 // Bound on an H100: bytes.  The function reads 4 bytes and writes 4 bytes
 // per element; the rank needs a few integer operations per element.
 //
-// Design: one block of 256 threads per 8192-element block, walking it in
-// flat order in 32 rounds of 256 elements.  In a round each warp finds the
-// lanes that share a lane's digit with __match_any_sync; the popcount of
-// those peers at or below the lane is its rank inside the warp.  The lowest
-// peer writes the warp's count of that digit into a shared [8 warps x R]
-// table; a lane adds the counts of its digit in the warps before its own
-// and the digit's running total from earlier rounds.  Then each warp's
-// lowest peer adds its count to the running total and clears its table
-// entry.  R running totals carry from round to round: a table of counts for
-// every chunk of a whole block would be [chunks x R] (256 x 256 x 4 bytes
-// at R = 256), more than a block's shared memory.  All-equal digits are
-// the worst case of __match_any_sync (one group of 32 peers) and are
-// checked on the card with the rest.
+// Design: one block of 8 warps per 8192-element block, and two block-wide
+// barriers in all.
+//   * Each warp owns 1024 consecutive keys of the block.  Lane l loads keys
+//     r * 32 + l of its warp's run for r < 32 before any compute: 32
+//     coalesced loads in flight per thread, so the card has enough bytes in
+//     flight to stream at its memory rate.
+//   * Warp-local ranking, with no block barrier: in round r the lanes that
+//     share a lane's digit are the AND of nbits ballots (each bit's ballot,
+//     or its complement, as CUB's block radix rank does; the complement is
+//     an XOR with bit - 1, so a bit costs a ballot and one logic op, where
+//     a select compiles to more).  The lowest such peer reads the warp's
+//     running count of the digit from a warp-private row of shared memory
+//     and raises it by the peers' number, and a shuffle hands the old count
+//     to the other peers.  Each lane keeps its key's rank inside the warp,
+//     packed with its digit, in the register that held the key.
+//   * One __syncthreads; then one thread per digit turns the 8 warps' counts
+//     of its digit into exclusive offsets, in place; one more
+//     __syncthreads, and each lane adds its warp's offset of each key's digit
+//     and stores the 32 ranks, coalesced.
+// Shared memory holds 8 x R counts (8 KB at R = 256).  nbits is a template
+// parameter, so the ballot loop unrolls.  All-equal digits (one group of 32
+// peers every round) and digits that change at each warp's run are checked
+// on the card with the rest.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,39 +44,66 @@ namespace {
 constexpr int kBlock = 8192;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRounds = kBlock / kThreads;
-constexpr int kMaxDigits = 256;
+constexpr int kWarpKeys = kBlock / kWarps;  // 1024
+constexpr int kRounds = kWarpKeys / 32;     // 32
+constexpr unsigned kFull = 0xffffffffu;
 
+template <int NBITS>
 __global__ void __launch_bounds__(kThreads)
-rank_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out,
-            int digits) {
-  __shared__ int running[kMaxDigits];
-  __shared__ int wcnt[kWarps][kMaxDigits];
+rank_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out) {
+  constexpr int R = 1 << NBITS;
+  // per warp: the running count of each digit, then its exclusive offset
+  __shared__ int count[kWarps][R];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int i = tid; i < kMaxDigits; i += kThreads) running[i] = 0;
-  for (int i = tid; i < kWarps * kMaxDigits; i += kThreads)
-    (&wcnt[0][0])[i] = 0;
-  __syncthreads();
-  const unsigned at_or_below = 0xffffffffu >> (31 - lane);
-  const long long base = (long long)blockIdx.x * kBlock + tid;
+  const long long base =
+      (long long)blockIdx.x * kBlock + warp * kWarpKeys + lane;
+  int v[kRounds];
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) v[r] = __ldcs(x + base + r * 32);
+  int* const mine = count[warp];
+  for (int d = lane; d < R; d += 32) mine[d] = 0;
+  __syncwarp();
+  const unsigned at_or_below = kFull >> (31 - lane);
+#pragma unroll
   for (int r = 0; r < kRounds; ++r) {
-    const long long e = base + r * kThreads;
-    const int d = x[e] & (digits - 1);
-    const unsigned peers = __match_any_sync(0xffffffffu, d);
-    const int count = __popc(peers);
-    const bool leader = lane == __ffs(peers) - 1;
-    if (leader) wcnt[warp][d] = count;
-    __syncthreads();
-    int rank = running[d] + __popc(peers & at_or_below);
-    for (int w = 0; w < warp; ++w) rank += wcnt[w][d];
-    out[e] = rank;
-    __syncthreads();  // every lane has read this round's counts
-    if (leader) {
-      atomicAdd(&running[d], count);
-      wcnt[warp][d] = 0;
+    const int d = v[r] & (R - 1);
+    unsigned peers = kFull;
+#pragma unroll
+    for (int b = 0; b < NBITS; ++b) {
+      const unsigned bit = (d >> b) & 1;  // bit - 1 is 0 or all ones
+      peers &= __ballot_sync(kFull, bit) ^ (bit - 1u);
     }
-    __syncwarp();  // the clear lands before the next round's write
+    const int leader = __ffs(peers) - 1;
+    int before = 0;
+    if (lane == leader) {
+      before = mine[d];
+      mine[d] = before + __popc(peers);
+    }
+    before = __shfl_sync(kFull, before, leader);
+    // the rank inside the warp is at most 1024: 11 bits above the digit
+    v[r] = (before + __popc(peers & at_or_below)) << NBITS | d;
+    __syncwarp();  // this round's count lands before the next round reads
   }
+  __syncthreads();
+  if (tid < R) {
+    int run = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = count[w][tid];
+      count[w][tid] = run;
+      run += c;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r)
+    __stcs(out + base + r * 32, (v[r] >> NBITS) + mine[v[r] & (R - 1)]);
+}
+
+template <int NBITS>
+void launch(const int32_t* x, int32_t* out, long long blocks,
+            cudaStream_t s) {
+  rank_kernel<NBITS><<<(unsigned)blocks, kThreads, 0, s>>>(x, out);
 }
 
 }  // namespace
@@ -79,10 +116,21 @@ int m2v_radix_rank(const void* x, void* out, long long n, int nbits,
   if (n < 0 || n % kBlock != 0 || nbits < 1 || nbits > 8 ||
       n / kBlock > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  if (n == 0) return (int)cudaGetLastError();
-  rank_kernel<<<(unsigned)(n / kBlock), kThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(x), static_cast<int32_t*>(out), 1 << nbits);
+  if (n == 0) return (int)cudaSuccess;
+  const int32_t* xi = static_cast<const int32_t*>(x);
+  int32_t* o = static_cast<int32_t*>(out);
+  const long long blocks = n / kBlock;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (nbits) {
+    case 1: launch<1>(xi, o, blocks, s); break;
+    case 2: launch<2>(xi, o, blocks, s); break;
+    case 3: launch<3>(xi, o, blocks, s); break;
+    case 4: launch<4>(xi, o, blocks, s); break;
+    case 5: launch<5>(xi, o, blocks, s); break;
+    case 6: launch<6>(xi, o, blocks, s); break;
+    case 7: launch<7>(xi, o, blocks, s); break;
+    default: launch<8>(xi, o, blocks, s); break;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -8,10 +8,10 @@ pass, which the radix probe (``tools/probe_radix.py``) weighs against a
 stable sort.
 
 On CUDA tensors ``radix_rank`` launches the hand-written kernel in
-``csrc/radix_rank.cu`` (``__match_any_sync`` ranks within a warp, a shared
-table of per-warp digit counts, running totals carried across rounds); on
-CPU tensors it runs ``radix_rank_plain``, a one-hot cumulative sum per
-block.  Replaces the Pallas kernel ``rank_kernel`` of
+``csrc/radix_rank.cu`` (each warp ranks its own ``WARP_KEYS`` keys of a
+block with ballots and a warp-private running count per digit, then the
+warps' counts are scanned into offsets: two block barriers in all); on CPU
+tensors it runs ``radix_rank_plain``, a one-hot cumulative sum per block.  Replaces the Pallas kernel ``rank_kernel`` of
 ``mplan2vdl_tpu/tools/probe_radix.py``, whose lower-triangular matmul scans
 answered Mosaic's missing cumsum.
 """
@@ -23,6 +23,8 @@ import torch
 from . import _lib
 
 BLOCK = 8192
+# keys of a block that one warp of csrc/radix_rank.cu ranks (its kWarpKeys)
+WARP_KEYS = 1024
 # elements of the plain version's one-hot per batch of blocks
 PLAIN_BUDGET = 1 << 26
 
@@ -69,6 +71,8 @@ def radix_rank(x: torch.Tensor, nbits: int) -> torch.Tensor:
         raise ValueError(f"unsupported device {x.device}")
     x = x.contiguous()
     out = torch.empty_like(x)
+    if x.shape[0] == 0:
+        return out
     rc = _lib.lib().m2v_radix_rank(x.data_ptr(), out.data_ptr(), x.shape[0],
                                    nbits, _lib.stream(x))
     _lib.check(rc, "radix_rank")

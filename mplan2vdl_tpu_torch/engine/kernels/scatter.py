@@ -4,8 +4,10 @@ The engine's scatters all write through unique, ascending positions: FK-join
 mask deduction scatters ones or positions through an ascending unique
 dimension mask, and the relational Scatter receives compaction outputs.  On
 CUDA tensors the wrapper launches the hand-written kernel in
-``csrc/scatter.cu`` (zero fill, then one thread per source row); on CPU
-tensors it runs the plain version.  Replaces
+``csrc/scatter.cu`` (one launch: blocks own spans of ``TILE``-slot output
+tiles, stage each tile in shared memory from the run of source rows that
+lands in it, walked in ``CHUNK``-row chunks, and store every slot once); on
+CPU tensors it runs the plain version.  Replaces
 ``mplan2vdl_tpu/engine/kernels/scatter.py:monotone_scatter`` with the same
 contract; the TPU kernel's two-window log-shift spread has no counterpart.
 """
@@ -17,6 +19,11 @@ import torch
 from . import _lib
 
 _DTYPES = (torch.int32, torch.int64)
+
+# output slots one block of csrc/scatter.cu stages at a time (its kTile),
+# and rows its walk loads per step (its kChunk)
+TILE = 4096
+CHUNK = 1024
 
 # kernel launches made by monotone_scatter (callers reset it)
 launches = 0
@@ -54,9 +61,14 @@ def monotone_scatter(pos: torch.Tensor, src: torch.Tensor,
         return monotone_scatter_plain(pos, src, L)
     if pos.device.type != "cuda":
         raise ValueError(f"unsupported device {pos.device}")
-    pos, src = pos.contiguous(), src.contiguous()
     out = torch.empty(L, dtype=src.dtype, device=src.device)
-    _lib.check(_lib.lib().m2v_scatter(
+    if L == 0:
+        return out
+    pos, src = pos.contiguous(), src.contiguous()
+    lib = _lib.lib()
+    if lib.m2v_scatter_tile() != TILE:
+        raise RuntimeError("scatter.cu's tile differs from scatter.TILE")
+    _lib.check(lib.m2v_scatter(
         pos.data_ptr(), pos.element_size(), src.data_ptr(),
         src.element_size(), out.data_ptr(), pos.shape[0], L,
         _lib.stream(pos)), "scatter")

@@ -10,11 +10,15 @@ Pallas kernels in interpret mode.  The CUDA kernels themselves run only on
 the GPU, where chip_smoke.py holds them against these plain versions.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
+
+import chip_smoke
 
 from mplan2vdl_tpu.engine.kernels import compact as jcompact
 from mplan2vdl_tpu.engine.kernels import multiagg as jmultiagg
@@ -234,68 +238,119 @@ def test_small_gather_clips_without_tail_repeat():
 
 # -------------------------------------------------------- monotone scatter
 def _scatter_cases():
-    """(id, pos, src, L) over the cases of tests/test_scatter_kernel.py."""
-    out = []
-    for seed in (0, 1):
-        for density in (0.02, 0.3, 0.9, 1.0):
-            rng = np.random.default_rng(seed)
-            L = int(rng.integers(2000, 40000))
-            pos = np.flatnonzero(rng.random(L) < density).astype(np.int32)
-            src = rng.integers(1, 2**20, len(pos)).astype(np.int32)
-            out.append((f"random-{density}-{seed}", pos, src, L))
-    L = 3 * 8192
-    spreads = [
-        np.array([0, 1], np.int32),
-        np.arange(100, dtype=np.int32) * 200,
-        np.concatenate([np.arange(50), L - 50 + np.arange(50)]
-                       ).astype(np.int32),
-        np.array([8191, 8192], np.int32),
-        np.array([8190, 8191, 8192, 8193, 16383, 16384], np.int32),
-    ]
-    rng = np.random.default_rng(9)
-    for i, pos in enumerate(spreads):
-        src = rng.integers(1, 1000, len(pos)).astype(np.int32)
-        out.append((f"spread-{i}", pos, src, L))
-    out.append(("lsb-first-counterexample", np.array([1, 3], np.int32),
-                np.array([7, 9], np.int32), L))
-    out.append(("invalid-tail", np.array([5, 17, 9000, 10000, 10000, 10000],
-                                         np.int32),
-                np.arange(1, 7, dtype=np.int32), 10000))
-    for seed in (0, 1, 2):
-        rng = np.random.default_rng(seed)
-        L = int(rng.integers(8192 + 1, 8192 * 4 - 1))
-        n_valid = int(rng.integers(100, 4000))
-        pos_valid = np.sort(rng.choice(L, n_valid, replace=False))
-        n_invalid = int(rng.integers(2, 12000))
-        pos = np.concatenate([pos_valid, np.full(n_invalid, L)]
-                             ).astype(np.int32)
-        src = rng.integers(1, 2**20, len(pos)).astype(np.int32)
-        out.append((f"invalid-cluster-at-L-{seed}", pos, src, L))
-    out.append(("valid-past-L", np.array([5, 9000, 10500, 12000, 16383,
-                                          16385], np.int32),
-                np.arange(1, 7, dtype=np.int32), 10000))
-    rng = np.random.default_rng(3)
-    L = 9000
-    pos = np.sort(rng.choice(L, 500, replace=False)).astype(np.int32)
-    out.append(("int64", pos, rng.integers(-2**60, 2**60, 500)
-                .astype(np.int64), L))
-    L = 16384
-    out.append(("identity", np.arange(L, dtype=np.int32),
-                np.arange(L, dtype=np.int32) * 3 + 1, L))
-    return out
+    """(id, pos, src, L) over the cases of tests/test_scatter_kernel.py and
+    the edges of csrc/scatter.cu's output tiles and walk chunks (the one
+    copy of both lists is chip_smoke's)."""
+    return chip_smoke.scatter_cases() + chip_smoke.scatter_edge_cases(
+        tscatter.TILE, tscatter.CHUNK)
 
 
-@pytest.mark.parametrize("pos,src,L", [c[1:] for c in _scatter_cases()],
-                         ids=[c[0] for c in _scatter_cases()])
-def test_scatter_matches_jax(interpret_mode, pos, src, L):
-    want = np.asarray(jscatter.monotone_scatter(jnp.asarray(pos),
-                                                jnp.asarray(src), L))
+SCATTER_CASES = {c[0]: c[1:] for c in _scatter_cases()}
+
+
+@functools.lru_cache(maxsize=None)
+def _scatter_jax(case):
+    """The JAX kernel's output for a case, in interpret mode."""
+    pos, src, L = SCATTER_CASES[case]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MPLAN2VDL_PL_INTERPRET", "1")
+        return np.asarray(jscatter.monotone_scatter(jnp.asarray(pos),
+                                                    jnp.asarray(src), L))
+
+
+@pytest.mark.parametrize("case", list(SCATTER_CASES))
+def test_scatter_matches_jax(case):
+    pos, src, L = SCATTER_CASES[case]
+    want = _scatter_jax(case)
     tpos, tsrc = torch.from_numpy(pos), torch.from_numpy(src)
     got = tscatter.monotone_scatter(tpos, tsrc, L)
     assert got.dtype == tsrc.dtype and got.shape == (L,)
     np.testing.assert_array_equal(got.numpy(), want)
     plain = tscatter.monotone_scatter_plain(tpos.long(), tsrc, L)
     np.testing.assert_array_equal(plain.numpy(), want)
+
+
+def _scatter_model(pos, src, L, per_block):
+    """numpy statement of csrc/scatter.cu's partition.  Blocks own spans of
+    ``per_block`` output tiles of TILE slots.  Warp 0 finds the span's first
+    source row by a 32-ary search.  Each tile takes the rows walked from
+    there in CHUNK-row steps, up to the first step that holds a position
+    past the tile (or until the tile is full).  The rows of a step that
+    land in the tile must be a prefix of the step.  The tile is staged
+    zeroed and stored whole, so every slot is stored exactly once."""
+    T, C = tscatter.TILE, tscatter.CHUNK
+    n = len(pos)
+    p64 = pos.astype(np.int64)
+    lanes = np.arange(32)
+
+    def at(i):  # positions of rows i, past the end as +inf
+        return np.where(i < n, p64[np.clip(i, 0, max(n - 1, 0))] if n
+                        else 0, np.iinfo(np.int64).max)
+
+    def first_row_at(target):
+        lo, hi = 0, n
+        while hi - lo > 32:
+            step = -(-(hi - lo) // 32)
+            i = lo + (lanes + 1) * step - 1
+            ge = (i >= hi) | (at(np.minimum(i, hi)) >= target)
+            if not ge.any():
+                return hi
+            f = int(np.argmax(ge))
+            hi = min(lo + (f + 1) * step - 1, hi)
+            lo += f * step
+        i = lo + lanes
+        ge = (i >= hi) | (at(np.minimum(i, hi)) >= target)
+        return lo + int(np.argmax(ge)) if ge.any() else hi
+
+    tiles = -(-L // T)
+    out = np.zeros(L, src.dtype)
+    stores = np.zeros(L, np.int64)
+    for t0 in range(0, tiles, per_block):
+        row = first_row_at(t0 * T)
+        assert row == int(np.searchsorted(np.minimum(p64, L), t0 * T))
+        for t in range(t0, min(t0 + per_block, tiles)):
+            lo = t * T
+            m = min(T, L - lo)
+            tile = np.zeros(T, src.dtype)
+            staged, steps = 0, 0
+            while True:
+                i = row + np.arange(C)
+                p = at(i)
+                hit = (p >= lo) & (p < lo + m)
+                c = int(hit.sum())
+                assert hit[:c].all(), "a step's in-tile rows are no prefix"
+                tile[p[hit] - lo] = src[i[hit]]
+                row, staged, steps = row + c, staged + c, steps + 1
+                if c < C or staged == m:
+                    break
+            assert staged <= m and steps <= m // C + 1
+            out[lo:lo + m] = tile[:m]
+            stores[lo:lo + m] += 1
+    assert (stores == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("case", list(SCATTER_CASES))
+def test_scatter_partition_matches_jax(case):
+    """The tile -> source-run split of csrc/scatter.cu, with one tile, a
+    few tiles and every tile per block, against the JAX kernel."""
+    pos, src, L = SCATTER_CASES[case]
+    want = _scatter_jax(case)
+    tiles = -(-L // tscatter.TILE)
+    for per_block in sorted({1, 2, 3, tiles}):
+        np.testing.assert_array_equal(
+            _scatter_model(pos, src, L, per_block), want)
+
+
+def test_scatter_model_edges():
+    """No rows, no slots, and rows that all fall outside the slots."""
+    pos = np.array([5, 9, 9], np.int32)
+    src = np.array([1, 2, 3], np.int32)
+    assert _scatter_model(pos[:0], src[:0], 5000, 1).tolist() == [0] * 5000
+    assert _scatter_model(pos, src, 0, 1).tolist() == []
+    assert _scatter_model(pos, src, 5, 1).tolist() == [0] * 5
+    assert tscatter.monotone_scatter(torch.from_numpy(pos),
+                                     torch.from_numpy(src), 0).shape == (0,)
 
 
 def test_scatter_rejects_bad_input():

@@ -36,13 +36,34 @@ def _load_tool(name):
 
 
 # -------------------------------------------------------------- digit rank
+KINDS = ["random", "all-equal", "ascending", "alternating", "warp-boundary"]
+# (nbits, n): every digit width of the contract
+WIDTHS = [(4, 16384), (8, 8192), (1, 16384), (2, 16384), (3, 16384),
+          (5, 8192), (6, 8192), (7, 8192)]
+
+
 def _keys(kind, n):
     if kind == "random":
         return np.random.default_rng(5).integers(0, 1 << 24, n,
                                                  dtype=np.int32)
     if kind == "all-equal":
         return np.full(n, 0xABCDEF, np.int32)
+    if kind == "alternating":  # two digits that differ in every bit
+        return np.where(np.arange(n) % 2 == 0, 0x5A5A5A5A,
+                        0x25A5A5A5).astype(np.int32)
+    if kind == "warp-boundary":  # the digit changes at each 1024-key run
+        return (np.arange(n) // rr.WARP_KEYS).astype(np.int32)
     return np.arange(n, dtype=np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _rank_jax(nbits, n, kind):
+    """The JAX probe's checksum of the rank, in interpret mode."""
+    jtool = _load_tool("probe_radix")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jtool.pl, "pallas_call", functools.partial(
+            jtool.pl.pallas_call, interpret=True))
+        return int(jtool.rank_kernel(nbits)(jnp.asarray(_keys(kind, n))))
 
 
 def _rank_numpy(x, nbits):
@@ -59,18 +80,66 @@ def _rank_numpy(x, nbits):
     return out.reshape(-1)
 
 
-@pytest.mark.parametrize("kind", ["random", "all-equal", "ascending"])
-@pytest.mark.parametrize("nbits,n", [(4, 16384), (8, 8192)])
-def test_radix_rank_matches_jax(monkeypatch, nbits, n, kind):
-    jtool = _load_tool("probe_radix")
-    monkeypatch.setattr(jtool.pl, "pallas_call", functools.partial(
-        jtool.pl.pallas_call, interpret=True))
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("nbits,n", WIDTHS)
+def test_radix_rank_matches_jax(nbits, n, kind):
     x = _keys(kind, n)
-    want_sum = int(jtool.rank_kernel(nbits)(jnp.asarray(x)))
     got = rr.radix_rank(torch.from_numpy(x), nbits)
     assert got.dtype == torch.int32 and got.shape == (n,)
     np.testing.assert_array_equal(got.numpy(), _rank_numpy(x, nbits))
-    assert int(rr.radix_rank_checksum(got)) == want_sum
+    assert int(rr.radix_rank_checksum(got)) == _rank_jax(nbits, n, kind)
+
+
+def _rank_model(x, nbits):
+    """numpy statement of csrc/radix_rank.cu.  A block's 8192 keys are 8
+    warps' runs of WARP_KEYS = 1024; lane l of a warp holds keys
+    r * 32 + l of its run (r < 32).  Round r: the lanes sharing a lane's
+    digit are the AND of nbits ballots (each bit's ballot, or its
+    complement); the lane's rank is the count of those peers at or below
+    it plus the warp's running count of its digit, which the round's peers
+    then raise by their number.  After the rounds, each warp's digit
+    counts are scanned across the 8 warps (exclusive) and added."""
+    R = 1 << nbits
+    W = rr.BLOCK // rr.WARP_KEYS
+    d = (x & (R - 1)).reshape(-1, W, rr.WARP_KEYS // 32, 32)
+    blocks = d.shape[0]
+    lanes = np.arange(32, dtype=np.uint64)
+    at_or_below = ((np.uint64(2) << lanes) - np.uint64(1)).astype(np.uint32)
+    weights = (np.uint64(1) << lanes)
+    running = np.zeros((blocks, W, R), np.int64)
+    rank = np.empty(d.shape, np.int64)
+    for r in range(d.shape[2]):
+        dig = d[:, :, r, :]                                   # [B, W, 32]
+        peers = np.full(dig.shape, 0xFFFFFFFF, np.uint32)
+        for b in range(nbits):
+            bit = (dig >> b) & 1
+            ballot = (bit.astype(np.uint64) * weights).sum(-1).astype(
+                np.uint32)[..., None]
+            peers &= np.where(bit == 1, ballot, ~ballot)
+        below = np.bitwise_count(peers & at_or_below).astype(np.int64)
+        assert (below >= 1).all()                     # a lane is its own peer
+        rank[:, :, r, :] = np.take_along_axis(running, dig, axis=2) + below
+        for lane in range(32):      # the round's peers raise their count
+            np.add.at(running, (np.arange(blocks)[:, None],
+                                np.arange(W)[None, :], dig[:, :, lane]), 1)
+    assert (running.sum(-1) == rr.WARP_KEYS).all()
+    offset = np.cumsum(running, axis=1) - running            # [B, W, R]
+    rank += np.take_along_axis(offset, d.reshape(blocks, W, -1), axis=2
+                               ).reshape(d.shape)
+    return rank.reshape(-1).astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("nbits,n", WIDTHS)
+def test_radix_rank_partition_matches_jax(nbits, n, kind):
+    """The kernel's warp-local ranks, per-warp counts and cross-warp
+    offsets, against the JAX probe's checksum and the plain version."""
+    x = _keys(kind, n)
+    got = _rank_model(x, nbits)
+    np.testing.assert_array_equal(
+        got, rr.radix_rank_plain(torch.from_numpy(x), nbits).numpy())
+    assert int(rr.radix_rank_checksum(torch.from_numpy(got))) == _rank_jax(
+        nbits, n, kind)
 
 
 def test_radix_rank_rejects_bad_input():
