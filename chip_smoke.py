@@ -27,18 +27,25 @@ Phases (any failure ends the run with a nonzero exit; nothing is caught):
   4. drives the port end to end through ``plan_to_vexps`` +
      ``CompiledQuery`` on ``cuda``: TPC-H Q6, Q1 (fused by the automatic
      gate, with its sums on the tensor cores by MPLAN2VDL_MXU_AGG=1, and
-     with MPLAN2VDL_FUSED_AGG=0), a lineitem scan-filter-project, then the
+     with MPLAN2VDL_FUSED_AGG=0), a lineitem scan-filter-project, the
      FK-join path: TPC-H Q3 (no-order form), Q5 and a sparse group-by over
-     l_orderkey.  Each run is row-exact against its oracle, and the engine
-     kernels' launch counters are read around it (Q6 and every Q1 run
-     must compact; the fused Q1 runs launch the fused aggregate once),
-     and the shape of each engine scatter (Q3's and Q5's) is printed;
-     ``--profile`` adds each engine kernel's device time per query;
+     l_orderkey, then the general-join path: TPC-H Q9 (no-order form, a
+     LIKE), Q13 (a left outer join), Q17 (MonetDB's decorrelated form, a
+     join against a derived table) and a group-by over substring(c_phone,
+     1, 2) (a dictionary recode).  Each run is row-exact against its
+     oracle, and the engine kernels' launch counters are read around it
+     (Q6 and every Q1 run must compact; the fused Q1 runs launch the fused
+     aggregate once; the general-join runs launch the compaction and both
+     gathers between them); the shape of each engine scatter (Q3's and
+     Q5's) is printed, and each equijoin's side, path (dense or merge),
+     sizes and host syncs; ``--profile`` adds each engine kernel's device
+     time per query;
   5. the probes: ``tools.probe_kernels`` (every pattern probe OK, each
      kernel equal to its plain version, timed) and ``tools.probe_radix``
      at its default sizes and the lineitem row count rounded up to a
      block, with the launch counters of the two probe kernels read around
-     them.
+     them; then an empty kernel's launch through the probes' ctypes path
+     is timed, which bounds the launch-bound probes.
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits nonzero and prints no result.  The plan texts and the
@@ -155,6 +162,98 @@ PLAN_SPARSE_GROUPBY = """project (
 ) [ lineitem.l_orderkey, L1 as L5.sum_qty, L2 as L5.first_ship, L3 as L5.max_qty, L4 as L5.n ]
 """
 
+# TPC-H Q9 in the no-order form: six tables, five FK joins (the composite
+# lineitem -> partsupp key among them), p_name like '%green%', and a sparse
+# group-by over (nation, year)
+PLAN_Q9 = """project (
+| group by (
+| | project (
+| | | join (
+| | | | join (
+| | | | | join (
+| | | | | | join (
+| | | | | | | join (
+| | | | | | | | select (
+| | | | | | | | | table(sys.part) [ part.p_partkey NOT NULL, part.p_name NOT NULL ] COUNT
+| | | | | | | | ) [ part.p_name NOT NULL FILTER like (varchar[char(7) "%green%"], varchar "") ],
+| | | | | | | | table(sys.lineitem) [ lineitem.l_orderkey NOT NULL, lineitem.l_partkey NOT NULL, lineitem.l_suppkey NOT NULL,
+| | | | | | | |   lineitem.l_quantity NOT NULL, lineitem.l_extendedprice NOT NULL, lineitem.l_discount NOT NULL ] COUNT
+| | | | | | | ) [ part.p_partkey NOT NULL = lineitem.l_partkey NOT NULL ],
+| | | | | | | table(sys.supplier) [ supplier.s_suppkey NOT NULL, supplier.s_nationkey NOT NULL ] COUNT
+| | | | | | ) [ supplier.s_suppkey NOT NULL = lineitem.l_suppkey NOT NULL ],
+| | | | | | table(sys.partsupp) [ partsupp.ps_partkey NOT NULL, partsupp.ps_suppkey NOT NULL, partsupp.ps_supplycost NOT NULL ] COUNT
+| | | | | ) [ partsupp.ps_suppkey NOT NULL = lineitem.l_suppkey NOT NULL, partsupp.ps_partkey NOT NULL = lineitem.l_partkey NOT NULL ],
+| | | | | table(sys.orders) [ orders.o_orderkey NOT NULL, orders.o_orderdate NOT NULL ] COUNT
+| | | | ) [ orders.o_orderkey NOT NULL = lineitem.l_orderkey NOT NULL ],
+| | | | table(sys.nation) [ nation.n_nationkey NOT NULL, nation.n_name NOT NULL ] COUNT
+| | | ) [ supplier.s_nationkey NOT NULL = nation.n_nationkey NOT NULL ]
+| | ) [ nation.n_name as profit.nation, sys.year(orders.o_orderdate NOT NULL) as profit.o_year,
+| |     sys.sql_sub(sys.sql_mul(lineitem.l_extendedprice NOT NULL, sys.sql_sub(decimal(15,2) "100", lineitem.l_discount NOT NULL)),
+| |       sys.sql_mul(partsupp.ps_supplycost NOT NULL, lineitem.l_quantity NOT NULL)) as profit.amount ]
+| ) [ profit.nation, profit.o_year ] [ profit.nation, profit.o_year, sys.sum no nil (profit.amount) as L1.L1 ]
+) [ profit.nation, profit.o_year, L1 as L2.sum_profit ]
+"""
+
+# TPC-H Q13: customer left outer join orders on the custkey with
+# o_comment not like '%special%requests%', orders per customer, then
+# customers per order count
+PLAN_Q13 = """project (
+| group by (
+| | project (
+| | | group by (
+| | | | left outer join (
+| | | | | table(sys.customer) [ customer.c_custkey NOT NULL ] COUNT,
+| | | | | select (
+| | | | | | table(sys.orders) [ orders.o_orderkey NOT NULL, orders.o_custkey NOT NULL, orders.o_comment NOT NULL ] COUNT
+| | | | | ) [ orders.o_comment NOT NULL ! FILTER like (varchar[char(19) "%special%requests%"], varchar "") ]
+| | | | ) [ customer.c_custkey NOT NULL = orders.o_custkey NOT NULL ]
+| | | ) [ customer.c_custkey ] [ customer.c_custkey, sys.count no nil (orders.o_orderkey) as L1.L1 ]
+| | ) [ customer.c_custkey as c_orders.c_custkey, L1 as c_orders.c_count ]
+| ) [ c_orders.c_count ] [ c_orders.c_count, sys.count() NOT NULL as L2.L2 ]
+) [ c_orders.c_count, L2 as L3.custdist ]
+"""
+
+# TPC-H Q17 in MonetDB's decorrelated shape: lineitem of the Brand#23 /
+# MED BOX parts joined with the per-part 0.2 * avg(l_quantity) over the same
+# parts (avg lowers to an integer sum / count, in l_quantity's two digits;
+# times 0.2 it has three, so l_quantity is cast to three to compare), and
+# l_quantity below it; the plan stops at sum(l_extendedprice), before SQL's
+# double-typed / 7.0
+PLAN_Q17 = """project (
+| group by (
+| | join (
+| | | join (
+| | | | table(sys.lineitem) [ lineitem.l_partkey NOT NULL, lineitem.l_quantity NOT NULL, lineitem.l_extendedprice NOT NULL ] COUNT,
+| | | | select (
+| | | | | table(sys.part) [ part.p_partkey NOT NULL, part.p_brand NOT NULL, part.p_container NOT NULL ] COUNT
+| | | | ) [ part.p_brand NOT NULL = char(10) "Brand#23", part.p_container NOT NULL = char(10) "MED BOX" ]
+| | | ) [ part.p_partkey NOT NULL = lineitem.l_partkey NOT NULL ],
+| | | project (
+| | | | group by (
+| | | | | join (
+| | | | | | table(sys.lineitem) [ lineitem.l_partkey NOT NULL as L1.l_partkey, lineitem.l_quantity NOT NULL as L1.l_quantity ] COUNT,
+| | | | | | select (
+| | | | | | | table(sys.part) [ part.p_partkey NOT NULL as P2.p_partkey, part.p_brand NOT NULL as P2.p_brand, part.p_container NOT NULL as P2.p_container ] COUNT
+| | | | | | ) [ P2.p_brand NOT NULL = char(10) "Brand#23", P2.p_container NOT NULL = char(10) "MED BOX" ]
+| | | | | ) [ P2.p_partkey NOT NULL = L1.l_partkey NOT NULL ]
+| | | | ) [ L1.l_partkey ] [ L1.l_partkey, sys.avg no nil (L1.l_quantity NOT NULL) as L2.L2 ]
+| | | ) [ L1.l_partkey as L3.l_partkey, sys.sql_mul(decimal(2,1) "2", L2.L2) as L3.lim ]
+| | ) [ lineitem.l_partkey NOT NULL = L3.l_partkey, decimal(15,3)[lineitem.l_quantity NOT NULL] < L3.lim ]
+| ) [  ] [ sys.sum no nil (lineitem.l_extendedprice NOT NULL) as L4.L4 ]
+) [ L4 as L5.sum_price ]
+"""
+
+# a group-by over substring(c_phone, 1, 2) (Q22's country code) with a count
+# and a sum of c_acctbal: the substring recodes c_phone's dictionary
+PLAN_SUBSTR_GROUPBY = """project (
+| group by (
+| | project (
+| | | table(sys.customer) [ customer.c_phone NOT NULL, customer.c_acctbal NOT NULL ] COUNT
+| | ) [ sys.substring(customer.c_phone NOT NULL, int "1", int "2") as custsale.cntrycode, customer.c_acctbal as custsale.c_acctbal ]
+| ) [ custsale.cntrycode ] [ custsale.cntrycode, sys.count() NOT NULL as L1.L1, sys.sum no nil (custsale.c_acctbal) as L2.L2 ]
+) [ custsale.cntrycode, L1 as L3.numcust, L2 as L3.totacctbal ]
+"""
+
 Q1_COLUMNS = ["l_returnflag", "l_linestatus", "sum_qty", "sum_base_price",
               "sum_disc_price", "sum_charge", "avg_qty", "avg_price",
               "avg_disc", "count_order"]
@@ -207,6 +306,14 @@ Q1_MXU = "Q1 fused MXU (MPLAN2VDL_MXU_AGG=1)"
 Q3_COLUMNS = ["l_orderkey", "revenue", "o_orderdate", "o_shippriority"]
 Q5_COLUMNS = ["n_name", "revenue"]
 SPARSE_COLUMNS = ["l_orderkey", "sum_qty", "first_ship", "max_qty", "n"]
+Q9_COLUMNS = ["nation", "o_year", "sum_profit"]
+Q13_COLUMNS = ["c_count", "custdist"]
+Q17_COLUMNS = ["sum_price"]
+SUBSTR_COLUMNS = ["cntrycode", "numcust", "totacctbal"]
+# the query runs of the general-join slice, and the engine kernels they
+# must launch between them
+JOIN_RUNS = ("Q9", "Q13", "Q17", "substring group-by")
+JOIN_KERNELS = ("compact", "gather", "small_gather")
 
 
 # ---------------------------------------------------------------- oracles
@@ -231,7 +338,9 @@ def _pk_lookup(keys, probe):
 
     order = np.argsort(keys, kind="stable")
     sk = keys[order]
-    i = np.clip(np.searchsorted(sk, probe), 0, max(len(sk) - 1, 0))
+    if len(sk) == 0:
+        return np.zeros(len(probe), np.int64), np.zeros(len(probe), bool)
+    i = np.clip(np.searchsorted(sk, probe), 0, len(sk) - 1)
     return order[i], sk[i] == probe
 
 
@@ -309,6 +418,112 @@ def oracle_sparse_groupby(st):
     return _group([c("l_orderkey")[m]],
                   [(qty, np.add), (c("l_shipdate")[m], np.minimum),
                    (qty, np.maximum), (np.ones(len(qty), np.int64), np.add)])
+
+
+def _codes_matching(st, tab, col, regex):
+    """Dictionary codes of ``tab.col`` whose string ``regex`` finds."""
+    import re
+
+    import numpy as np
+
+    rx = re.compile(regex)
+    return np.asarray([c for c, v in st.decoders[(tab, col)].items()
+                       if rx.search(v)], np.int64)
+
+
+def _year(days):
+    """Calendar year of day counts since 0000-01-01."""
+    import numpy as np
+
+    d = (np.asarray(days, np.int64) - 365 - 719163).astype("datetime64[D]")
+    return d.astype("datetime64[Y]").astype(np.int64) + 1970
+
+
+def oracle_q9(st):
+    import numpy as np
+
+    c = lambda t, n: st.columns[(t, n)]  # noqa: E731
+    green = np.isin(c("part", "p_name"),
+                    _codes_matching(st, "part", "p_name", "green"))
+    # lineitem rows of a green part, then the other joins on those rows
+    _, pfound = _pk_lookup(c("part", "p_partkey")[green],
+                           c("lineitem", "l_partkey"))
+    rows = np.flatnonzero(pfound)
+    lp = c("lineitem", "l_partkey")[rows]
+    ls = c("lineitem", "l_suppkey")[rows]
+    si, sfound = _pk_lookup(c("supplier", "s_suppkey"), ls)
+    # partsupp's key (ps_partkey, ps_suppkey) as one int64
+    k = int(max(ls.max(initial=0), c("partsupp", "ps_suppkey").max())) + 1
+    psi, psfound = _pk_lookup(
+        c("partsupp", "ps_partkey").astype(np.int64) * k
+        + c("partsupp", "ps_suppkey"), lp.astype(np.int64) * k + ls)
+    oi, ofound = _pk_lookup(c("orders", "o_orderkey"),
+                            c("lineitem", "l_orderkey")[rows])
+    ni, nfound = _pk_lookup(c("nation", "n_nationkey"),
+                            c("supplier", "s_nationkey")[si])
+    m = sfound & psfound & ofound & nfound
+    i64 = lambda n: c("lineitem", n)[rows[m]].astype(np.int64)  # noqa: E731
+    amount = (i64("l_extendedprice") * (100 - i64("l_discount"))
+              - c("partsupp", "ps_supplycost")[psi[m]].astype(np.int64)
+              * i64("l_quantity"))
+    return _group([c("nation", "n_name")[ni[m]],
+                   _year(c("orders", "o_orderdate")[oi[m]])],
+                  [(amount, np.add)])
+
+
+def oracle_q13(st):
+    import numpy as np
+
+    c = lambda t, n: st.columns[(t, n)]  # noqa: E731
+    special = _codes_matching(st, "orders", "o_comment", "special.*requests")
+    keep = ~np.isin(c("orders", "o_comment"), special)
+    ckeys = c("customer", "c_custkey")
+    ci, cfound = _pk_lookup(ckeys, c("orders", "o_custkey")[keep])
+    per_cust = np.bincount(ci[cfound], minlength=len(ckeys))
+    return _group([per_cust], [(np.ones(len(ckeys), np.int64), np.add)])
+
+
+def oracle_q17(st):
+    import numpy as np
+
+    c = lambda t, n: st.columns[(t, n)]  # noqa: E731
+    ok = ((c("part", "p_brand") == _code(st, "part", "p_brand", "Brand#23"))
+          & (c("part", "p_container")
+             == _code(st, "part", "p_container", "MED BOX")))
+    # lineitem rows of those parts
+    lp = c("lineitem", "l_partkey")
+    _, pfound = _pk_lookup(c("part", "p_partkey")[ok], lp)
+    sel = np.flatnonzero(pfound)
+    qty = c("lineitem", "l_quantity")[sel].astype(np.int64)
+    _, inv = np.unique(lp[sel], return_inverse=True)
+    # avg is sum // count in l_quantity's scale (2 digits); 0.2 * avg then
+    # has 3, so l_quantity compares at 3 digits too
+    avg = np.bincount(inv, qty).astype(np.int64) // np.bincount(inv)
+    below = qty * 10 < 2 * avg[inv]
+    price = c("lineitem", "l_extendedprice")[sel][below].astype(np.int64)
+    return [np.asarray([price.sum()], np.int64)]
+
+
+def substr_codes(st, tab, col, start, length):
+    """substring(col, start, length)'s derived dictionary code of each code
+    of ``tab.col``: the rank of its substring among the distinct substrings
+    of the column's dictionary."""
+    dec = st.decoders[(tab, col)]
+    sub = {code: v[start - 1:start - 1 + length] for code, v in dec.items()}
+    rank = {v: i for i, v in enumerate(sorted(set(sub.values())))}
+    return {code: rank[v] for code, v in sub.items()}, sorted(rank)
+
+
+def oracle_substr_groupby(st):
+    import numpy as np
+
+    c = lambda n: st.columns[("customer", n)]  # noqa: E731
+    derived, _ = substr_codes(st, "customer", "c_phone", 1, 2)
+    lut = np.zeros(max(derived) + 1, np.int64)
+    lut[list(derived)] = list(derived.values())
+    cc = lut[c("c_phone")]
+    return _group([cc], [(np.ones(len(cc), np.int64), np.add),
+                         (c("c_acctbal"), np.add)])
 
 
 # ------------------------------------------------------ scatter cases
@@ -1210,8 +1425,18 @@ class Smoke:
                   ("compact", "gather", "scatter", "small_gather")),
                  ("sparse group-by", PLAN_SPARSE_GROUPBY, None,
                   check_rows(SPARSE_COLUMNS, oracle_sparse_groupby),
-                  ("compact", "gather"))]
+                  ("compact", "gather")),
+                 ("Q9", PLAN_Q9, None, check_rows(Q9_COLUMNS, oracle_q9),
+                  ("compact", "gather", "small_gather", "scatter")),
+                 ("Q13", PLAN_Q13, None, check_rows(Q13_COLUMNS, oracle_q13),
+                  ("compact", "gather", "small_gather")),
+                 ("Q17", PLAN_Q17, None, check_rows(Q17_COLUMNS, oracle_q17),
+                  ("compact", "gather")),
+                 ("substring group-by", PLAN_SUBSTR_GROUPBY, None,
+                  check_rows(SUBSTR_COLUMNS, oracle_substr_groupby),
+                  ("compact", "small_gather"))]
         total = {k: 0 for k in counters}
+        join_total = {k: 0 for k in counters}
         os.environ.pop("MPLAN2VDL_MXU_AGG", None)
         # the engine's scatter calls of each query's first run: shapes and
         # in-range rows, for their bounds
@@ -1254,6 +1479,12 @@ class Smoke:
                         for k, (mod, attr) in counters.items()}
             for k in total:
                 total[k] += launches[k]
+                if name in JOIN_RUNS:
+                    join_total[k] += launches[k]
+            # each equijoin of the first call: side, path, sizes, and the
+            # counts it read to the host
+            for j in cq.join_log:
+                print(json.dumps({"join": name, **j}), flush=True)
             check(res)
             idle = [k for k in must if launches[k] == 0]
             if idle:
@@ -1281,12 +1512,15 @@ class Smoke:
             nbytes = (sum(a.numel() * a.element_size()
                           for a in cq.device_args())
                       + sum(c.nbytes for c in res.columns))
-            rec = {"query": name, "sf": self.args.sf, "rows_in": self.n,
+            # rows of the largest table the query reads
+            rows_in = max(a.shape[0] for a in cq.device_args())
+            rec = {"query": name, "sf": self.args.sf, "rows_in": rows_in,
                    "rows_out": len(res.columns[0]), "median_ms": med,
-                   "ms": times, "rows_per_s": self.n / (med / 1e3),
+                   "ms": times, "rows_per_s": rows_in / (med / 1e3),
                    "bound_ms": _bound_ms(nbytes), "load_ms": load_ms,
                    "peak_gb": self.torch.cuda.max_memory_allocated() / 1e9,
-                   "launches": launches, "card": self.smi}
+                   "launches": launches, "host_syncs": cq.host_syncs,
+                   "joins": cq.join_log, "card": self.smi}
             if self.args.profile:
                 rec["profile"] = self.profile(name, cq)
             self.records["queries"].append(rec)
@@ -1308,7 +1542,11 @@ class Smoke:
             if v == 0:
                 raise AssertionError(f"kernel {k} was not launched by the "
                                      "queries")
-        print(json.dumps({"main_path_launches": total}), flush=True)
+        idle = [k for k in JOIN_KERNELS if join_total[k] == 0]
+        if idle:
+            raise AssertionError(f"the general-join runs launched no {idle}")
+        print(json.dumps({"main_path_launches": total,
+                          "general_join_launches": join_total}), flush=True)
 
     def probe_phase(self):
         """Runs the two probe tools on the card with their launch counters
@@ -1356,9 +1594,22 @@ class Smoke:
                 tot[k] += rec[k]
             self.records.setdefault("probe_times", []).append(rec)
             print(json.dumps(rec), flush=True)
+        # the probes are launch-bound: their bound is the larger of their
+        # bytes at the memory rate and their launches, one pass of the 15
+        # runs, at the time of an empty launch through the same ctypes path
+        P.launches = 0
+        for p in probe_kernels.make_probes(self.dev):
+            p.run(P)
+        per_pass = P.launches
+        noop_ms = self.cuda_ms(lambda: P.noop(self.dev), 10 * REPS)
+        self.probe_bound = {"bytes_ms": tot["bound_ms"], "noop_ms": noop_ms,
+                            "launches": per_pass,
+                            "launches_ms": per_pass * noop_ms}
+        print(json.dumps({"probe_bound": self.probe_bound}), flush=True)
         self.kernel_time("probes", "the 15 probe runs (12 probes and 3 "
                          "tensor-core variants), summed", tot["ms"],
-                         tot["plain_ms"], None, tot["bound_ms"], P.launches)
+                         tot["plain_ms"], None,
+                         max(tot["bound_ms"], per_pass * noop_ms), per_pass)
 
     def profile(self, name, cq):
         """One warm call under torch.profiler: device (kernel) time beside
@@ -1398,6 +1649,15 @@ class Smoke:
                 "kernels": {k: list(v) for k, v in kernels.items()},
                 "top": [[e.key, e.count, dev_us(e) / 1e3] for e in top]}
 
+    def bound_by(self, name):
+        """What sets a kernel's bound: its bytes, or for the probes, when
+        their launches take longer, the operations (launches at the empty
+        kernel's rate)."""
+        if name == "probes" and (self.probe_bound["launches_ms"]
+                                 > self.probe_bound["bytes_ms"]):
+            return "operations"
+        return "bytes"
+
     def summary(self):
         out = []
         launches = {**self.launches, **self.probe_launches}
@@ -1409,7 +1669,8 @@ class Smoke:
                         "launches": launches[name],
                         "max_abs_err": self.max_err[name],
                         "ms": t["ms"], "plain_ms": t["plain_ms"],
-                        "bound_ms": t["bound_ms"], "bound_by": "bytes",
+                        "bound_ms": t["bound_ms"],
+                        "bound_by": self.bound_by(name),
                         "library_ms": t["library_ms"]})
         return {"kernels": out}
 

@@ -52,6 +52,7 @@ _SIGNATURES = {
     "m2v_multiagg_mxu_fast": ([_P, _I, _P, _L, _P, _I, _P, _I, _I, _I, _I,
                                _I, _P, _P], _I),
     "m2v_probe_fma": ([_P, _P, _I, _I, _I, _I, _I, _I, _P, _P], _I),
+    "m2v_probe_noop": ([_P], _I),
     "m2v_probe_mma": ([_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P], _I),
     "m2v_probe_rows_copy": ([_P, _I, _I, _I, _I, _I, _P, _P], _I),
     "m2v_probe_take": ([_P, _I, _P, _L, _I, _P, _P], _I),

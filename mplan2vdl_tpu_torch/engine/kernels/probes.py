@@ -199,6 +199,16 @@ def take(table: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+# ------------------------------------------------------------------ noop
+def noop(device: torch.device) -> None:
+    """One launch of an empty kernel on ``device``'s current stream: the
+    fixed cost that each probe launch pays (a CUDA device only)."""
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"noop launches on a CUDA device, not {device}")
+    _launched(_lib.lib().m2v_probe_noop(
+        torch.cuda.current_stream(device).cuda_stream), "probe noop")
+
+
 PLAIN = SimpleNamespace(transpose=transpose_plain, rows_copy=rows_copy_plain,
                         fma_contract=fma_contract_plain,
                         mma_contract=mma_contract_plain, take=take_plain)

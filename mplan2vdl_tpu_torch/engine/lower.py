@@ -4,9 +4,10 @@ Execution model: every vector is a buffer whose length is the node's count
 bound, paired with a ``valid`` count; slots past ``valid`` hold zeros.  The
 JAX engine traces the whole DAG into one program with static shapes, so it
 resolves data-dependent sizes in a counting pre-pass; the port runs eagerly
-and reads each such size where it arises instead — so far that is only a
-selection's survivor count (one host sync per ``Fold FSel``).  The results
-are the JAX engine's, row for row.
+and reads each such size where it arises instead: a selection's survivor
+count (one host sync per ``Fold FSel``) and an equijoin's output length
+(one per join key pair, two for outer sides).  The results are the JAX
+engine's rows; within a run of equal join keys the pair order may differ.
 
 Physical dtypes are chosen per node from the catalog's value bounds (int32
 when they fit, int64 otherwise); integers are native int64, with no
@@ -16,11 +17,14 @@ The port evaluates Load, RangeC, RangeV, Binop, ``Shuffle GATHER``,
 ``Shuffle SCATTER`` through unique monotone positions, ``Fold FSel``,
 dense-domain folds (one masked reduction per group id, or the fused
 multi-aggregate kernel for families of folds sharing a group key), the
-sparse sort-based group-by and Partition.  On the GPU, compaction, the
-gathers, the scatter and the fused aggregate (with MPLAN2VDL_MXU_AGG=1 its
-sums on the tensor cores) run as hand-written CUDA kernels (``kernels/``).
-Every other node kind raises ``NotImplementedError`` naming it: a plan
-beyond the port fails loudly.
+sparse sort-based group-by, Partition, ``Like`` and ``DictMap`` (a lookup
+table over the code domain, built once per compiled query),
+``CrossProduct``, and ``JoinIndex`` with all seven sides (sort-merge, or
+the dense-domain join for a small build side).  On the GPU, compaction,
+the gathers, the scatter and the fused aggregate (with MPLAN2VDL_MXU_AGG=1
+its sums on the tensor cores) run as hand-written CUDA kernels
+(``kernels/``).  Every other node kind raises ``NotImplementedError``
+naming it: a plan beyond the port fails loudly.
 """
 
 from __future__ import annotations
@@ -53,6 +57,13 @@ from .kernels.sorted_gather import SMALL_TABLE, gather_many
 # The threshold was tuned for the JAX engine's device; the port keeps it
 # until measurements on the GPU set it.
 FUSED_AUTO_ROWS = 24_000_000
+
+# dense-domain join: the widest key domain (one D-length int32 run table)
+# and the most build-side rows.  Run start and run length each fit 16 bits
+# and pack into one int32 entry (lo | cnt << 16).  MPLAN2VDL_NO_DENSE_JOIN=1
+# forces the sort-merge join everywhere.
+DENSE_DOMAIN = 1 << 26
+DENSE_RIGHT_MAX = (1 << 16) - 1
 
 _INT_DTYPES = (torch.int32, torch.int64)
 
@@ -114,6 +125,33 @@ def like_to_regex(pattern: str) -> "re.Pattern":
     return re.compile("^" + "".join(out) + "$", re.DOTALL)
 
 
+def _dense_join_on() -> bool:
+    return os.environ.get("MPLAN2VDL_NO_DENSE_JOIN", "0") in ("", "0")
+
+
+def _dense_tab(r_ok: torch.Tensor, m: int, klo: int, D: int):
+    """(rs_idx, packed run table) of one dense-join build side: a stable
+    sort of the right keys (sentinel rows last), then each key's first
+    sorted row (``min``) and run length (``add``) scattered over the
+    domain and packed as ``lo | cnt << 16``.  Sentinel rows go to a dump
+    slot past the domain, which is cut off."""
+    dev = r_ok.device
+    rs, rs_idx = torch.sort(r_ok, stable=True)
+    slot = torch.clamp(rs.to(torch.int64) - klo, 0, D)
+    pos = torch.arange(m, dtype=torch.int32, device=dev)
+    lo_tab = torch.full((D + 1,), m, dtype=torch.int32, device=dev)
+    lo_tab.scatter_reduce_(0, slot, pos, "amin")
+    cnt_tab = torch.zeros(D + 1, dtype=torch.int32, device=dev)
+    cnt_tab.index_add_(0, slot, torch.ones_like(pos))
+    return rs_idx.to(torch.int32), lo_tab[:D] | (cnt_tab[:D] << 16)
+
+
+def _expand_li(cum: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Which left row's run of output slots holds each slot ``k``:
+    ``searchsorted(cum, k, side='right')`` over the inclusive counts."""
+    return torch.searchsorted(cum, k, right=True)
+
+
 def _monotone_positions(v: V.Vexp) -> bool:
     """Positions known sorted ascending from the plan alone: selection
     compactions (FSel outputs), non-negative ranges, join-index outputs
@@ -143,17 +181,26 @@ class Compiler:
 
     ``fold_map``/``families`` route fused fold families (engine/fuse.py);
     ``gather_mates`` maps a position vector's key to the gathers sharing
-    it, so they batch into one kernel launch."""
+    it, so they batch into one kernel launch; ``dense_sibs`` maps a probe
+    key vector's key to the joins sharing it, so their dense run tables
+    batch into one gather; ``lookups`` holds the Like/DictMap tables across
+    calls (the owner keeps it, so each is built once per compiled query).
+    After a call, ``join_log`` holds one entry per JoinIndex evaluated and
+    ``host_syncs`` the counts read to the host."""
 
     def __init__(self, store: ColumnStore, device: torch.device,
                  fold_map: Optional[dict] = None,
                  families: Optional[list] = None,
-                 gather_mates: Optional[dict] = None):
+                 gather_mates: Optional[dict] = None,
+                 dense_sibs: Optional[dict] = None,
+                 lookups: Optional[dict] = None):
         self.store = store
         self.device = device
         self.fold_map = fold_map or {}
         self.families = families or []
         self.gather_mates = gather_mates or {}
+        self.dense_sibs = dense_sibs or {}
+        self.lookups = lookups if lookups is not None else {}
 
     def _monotone(self, v: V.Vexp) -> bool:
         """Positions/values known non-decreasing: the static rules of
@@ -172,6 +219,10 @@ class Compiler:
         self.group_cache: Dict[tuple, dict] = {}
         self.fused_cache: Dict[int, dict] = {}
         self.gather_multi: Dict[int, torch.Tensor] = {}
+        self.join_cache: Dict[tuple, dict] = {}
+        self.dense_pre: Dict[tuple, tuple] = {}
+        self.join_log: List[dict] = []
+        self.host_syncs = 0
         self.tables = tables
         return [self._force(self.eval(v)) for v in vexps]
 
@@ -193,6 +244,11 @@ class Compiler:
                                            device=self.device)
         data = _mask_tail(data, val.valid, val.length)
         return Val(data=data, valid=val.valid, length=val.length)
+
+    def _read(self, t: torch.Tensor) -> int:
+        """A count read to the host (a sync); ``host_syncs`` counts them."""
+        self.host_syncs += 1
+        return int(t)
 
     # ------------------------------------------------------------------- ops
     def _eval(self, v: V.Vexp) -> Val:
@@ -236,7 +292,7 @@ class Compiler:
             # the survivor count sizes the selection buffer, so every
             # downstream gather runs at the real cardinality (one host
             # sync; the JAX engine resolved it in a counting pre-pass)
-            nz = int(mask.sum())
+            nz = self._read(mask.sum())
             L_out = min(max(nz, 1), L)
             sel = _sel_positions(mask, L_out)
             sel = _mask_tail(sel.to(dt), nz, L_out)
@@ -251,6 +307,18 @@ class Compiler:
         if isinstance(vx, V.VShuffle):
             # any permutation is legal; identity preserves determinism
             return self.eval(vx.varg)
+
+        if isinstance(vx, V.Like):
+            return self._eval_like(v, vx)
+
+        if isinstance(vx, V.DictMap):
+            return self._eval_dictmap(v, vx)
+
+        if isinstance(vx, V.CrossProduct):
+            return self._eval_cross(v, vx)
+
+        if isinstance(vx, V.JoinIndex):
+            return self._eval_join_index(v, vx)
 
         raise _outside_slice(type(vx).__name__)
 
@@ -331,6 +399,290 @@ class Compiler:
                         torch.full((), L, dtype=pdt, device=self.device))
         out = monotone_scatter(p, src.data[:n].to(dt), L)
         return Val(data=out, valid=L, length=L)
+
+    # ------------------------------------------------------ Like / DictMap
+    def _eval_like(self, v: V.Vexp, vx: V.Like) -> Val:
+        """The pattern is matched against the column's dictionary on the
+        host, once per compiled query (the JAX engine does it once at trace
+        time); each row then looks its code up in the matching set."""
+        dval = self._force(self.eval(vx.ldata))
+        tab = self.lookups.get(v.skey)
+        if tab is None:
+            dec = self.store.decoders.get(vx.lcol)
+            if dec is None:
+                raise KeyError(
+                    f"no string dictionary for column {name_str(vx.lcol)}")
+            rx = like_to_regex(vx.lpattern)
+            codes = [c for c, st in dec.items() if rx.match(st)]
+            tab = self._lookup_table(vx.ldata, codes, [1] * len(codes))
+            self.lookups[v.skey] = tab
+        found = self._lookup(tab, dval) != 0
+        out = _mask_tail(found.to(dtype_for(v.info)), dval.valid, dval.length)
+        return Val(data=out, valid=dval.valid, length=dval.length)
+
+    def _eval_dictmap(self, v: V.Vexp, vx: V.DictMap) -> Val:
+        """Code -> derived code through the plan's mapping, 0 for a code
+        the mapping lacks; the table is built once per compiled query."""
+        dval = self._force(self.eval(vx.ldata))
+        tab = self.lookups.get(v.skey)
+        if tab is None:
+            tab = self._lookup_table(vx.ldata, [a for a, _ in vx.mapping],
+                                     [b for _, b in vx.mapping])
+            self.lookups[v.skey] = tab
+        out = _mask_tail(self._lookup(tab, dval).to(dtype_for(v.info)),
+                         dval.valid, dval.length)
+        return Val(data=out, valid=dval.valid, length=dval.length)
+
+    def _lookup_table(self, ldata: V.Vexp, codes: List[int],
+                      values: List[int]) -> Optional[Tuple[int, torch.Tensor]]:
+        """(lo, table) over the code domain [lo, hi] of ``ldata``'s bounds
+        (a dictionary's codes), holding ``values`` at ``codes`` and 0
+        elsewhere; None when no code lies in the domain."""
+        lo, hi = ldata.info.bounds
+        pairs = [(c, x) for c, x in zip(codes, values) if lo <= c <= hi]
+        if not pairs:
+            return None
+        c = np.asarray([a for a, _ in pairs], np.int64)
+        x = np.asarray([b for _, b in pairs], np.int64)
+        tab = np.zeros(hi - lo + 1, np.int32 if x.max() <= INT32_MAX
+                       else np.int64)
+        tab[c - lo] = x
+        return lo, torch.from_numpy(tab).to(self.device)
+
+    def _lookup(self, tab: Optional[Tuple[int, torch.Tensor]],
+                dval: Val) -> torch.Tensor:
+        """Each row's code looked up in ``tab`` (``_lookup_table``): a
+        gather through the table, routed by its size as any non-monotone
+        gather is."""
+        if tab is None:
+            return torch.zeros(dval.length, dtype=torch.int32,
+                               device=self.device)
+        lo, t = tab
+        pos = dval.data if lo == 0 else dval.data - lo
+        return gather_many([t], pos, dval.valid,
+                           small=t.shape[0] <= SMALL_TABLE)[0]
+
+    # ---------------------------------------------------------- cross product
+    def _eval_cross(self, v: V.Vexp, vx: V.CrossProduct) -> Val:
+        """Row indices of the left (COUTER) or right (CINNER) side of every
+        pair, left-major."""
+        dev = self.device
+        lv, rv = self.eval(vx.left), self.eval(vx.right)
+        L = lv.length * rv.length
+        total = _i64(lv.valid, dev) * _i64(rv.valid, dev)
+        i = torch.arange(L, dtype=torch.int64, device=dev)
+        mv = torch.clamp(_i64(rv.valid, dev), min=1)
+        data = i // mv if vx.variant == V.COUTER else i % mv
+        data = torch.where(i < total, data, _i64(0, dev))
+        if isinstance(lv.valid, int) and isinstance(rv.valid, int):
+            total = lv.valid * rv.valid
+        return Val(data=data.to(dtype_for(v.info)), valid=total, length=L)
+
+    # -------------------------------------------------------------- equijoins
+    def _join_artifacts(self, lkeys: V.Vexp, rkeys: V.Vexp) -> dict:
+        """Equijoin core, shared by every JoinIndex over one key pair: per
+        left row, the first matching position ``lo`` in the sorted right
+        side, the match count ``cnt`` and its inclusive prefix ``cum``;
+        ``rs_idx`` is the right side's sort permutation.  The dense-domain
+        join (``_dense_join``) builds them for a small build side; else the
+        right keys sort and each left key's run is two binary searches."""
+        key = (lkeys.skey, rkeys.skey)
+        hit = self.join_cache.get(key)
+        if hit is not None:
+            return hit
+        dev = self.device
+        lv = self._force(self.eval(lkeys))
+        rv = self._force(self.eval(rkeys))
+        n, m = lv.length, rv.length
+        # int32 keys when the bounds allow; the sentinels of invalid rows
+        # sit just above the key domain and never match each other
+        klo = min(lkeys.info.bounds[0], rkeys.info.bounds[0])
+        khi = max(lkeys.info.bounds[1], rkeys.info.bounds[1])
+        use32 = (klo > -(2**31) and khi < 2**31 - 3 and max(n, m) < 2**31)
+        kdt = torch.int32 if use32 else torch.int64
+        sent_l = torch.full((), khi + 1 if use32 else 2**62 - 1, dtype=kdt,
+                            device=dev)
+        sent_r = torch.full((), khi + 2 if use32 else 2**62, dtype=kdt,
+                            device=dev)
+        r_ok = torch.where(torch.arange(m, device=dev) < rv.valid,
+                           rv.data.to(kdt), sent_r)
+        l_ok = torch.where(torch.arange(n, device=dev) < lv.valid,
+                           lv.data.to(kdt), sent_l)
+        art = self._dense_join(key, lv, rv, l_ok, r_ok, klo, khi, use32,
+                               lkeys)
+        if art is None:
+            rs, rs_idx = torch.sort(r_ok, stable=True)
+            lo, hi = mergesearch.lo_hi(rs, l_ok)
+            art = dict(path="merge", rs_idx=rs_idx.to(kdt), lo=lo,
+                       cnt=hi - lo)
+        art["cum"] = scan.cumsum(art["cnt"])
+        art["total"] = art["cum"][-1] if n > 0 else _i64(0, dev)
+        art.update(n=n, m=m, lvalid=lv.valid, syncs=0)
+        self.join_cache[key] = art
+        return art
+
+    def _dense_sib_ok(self, lkeys: V.Vexp, r2: V.Vexp, klo: int,
+                      khi: int) -> bool:
+        """A sibling join's build side may batch only when it spans the
+        same dense domain (same table length and decode) and its subtree
+        holds no JoinIndex (building it from inside another join's
+        artifacts must not recurse into join machinery)."""
+        klo2 = min(lkeys.info.bounds[0], r2.info.bounds[0])
+        khi2 = max(lkeys.info.bounds[1], r2.info.bounds[1])
+        if (klo2, khi2) != (klo, khi):
+            return False
+        seen, stack = set(), [r2]
+        while stack:
+            y = stack.pop()
+            if y.skey in seen:
+                continue
+            seen.add(y.skey)
+            if isinstance(y.vx, V.JoinIndex):
+                return False
+            stack.extend(_children(y.vx))
+        return True
+
+    def _dense_join(self, key, lv: Val, rv: Val, l_ok: torch.Tensor,
+                    r_ok: torch.Tensor, klo: int, khi: int, use32: bool,
+                    lkeys: V.Vexp) -> Optional[dict]:
+        """Dense-domain join artifacts, or None when the join is not
+        eligible: int32 keys over a domain of at most DENSE_DOMAIN, a build
+        side of 1 to DENSE_RIGHT_MAX rows, and probe keys that ascend or a
+        domain of at most SMALL_TABLE.  Only the right side sorts; its run
+        table (``_dense_tab``) is gathered at every probe key, through the
+        small-table gather for a small domain and the monotone gather
+        otherwise.  Sibling joins probing the same keys over the same
+        domain stack their tables into the same gather launch.  ``lo`` and
+        ``rs_idx`` keep the sort-merge path's meaning."""
+        n, m = lv.length, rv.length
+        D = khi - klo + 1
+        small = D <= SMALL_TABLE
+        if not (_dense_join_on() and use32 and 0 < D <= DENSE_DOMAIN
+                and 1 <= m <= DENSE_RIGHT_MAX
+                and (small or self._monotone(lkeys))):
+            return None
+        dev = self.device
+        lk = torch.clamp(l_ok - klo, 0, D - 1)
+        hit = self.dense_pre.pop(key, None)
+        if hit is not None:
+            rs_idx, pk = hit
+        else:
+            rs_idx, packed = _dense_tab(r_ok, m, klo, D)
+            sibs = []
+            for l2, r2 in self.dense_sibs.get(key[0], ()):
+                k2 = (l2.skey, r2.skey)
+                if (k2 == key or k2 in self.dense_pre
+                        or k2 in self.join_cache
+                        or not self._dense_sib_ok(lkeys, r2, klo, khi)):
+                    continue
+                rv2 = self._force(self.eval(r2))
+                m2 = rv2.length
+                if not 1 <= m2 <= DENSE_RIGHT_MAX:
+                    continue
+                r_ok2 = torch.where(
+                    torch.arange(m2, device=dev) < rv2.valid,
+                    rv2.data.to(torch.int32),
+                    torch.full((), khi + 2, dtype=torch.int32, device=dev))
+                sibs.append((k2,) + _dense_tab(r_ok2, m2, klo, D))
+            outs = gather_many([packed] + [t[2] for t in sibs], lk,
+                               lv.valid, small=small)
+            pk = outs[0]
+            for (k2, rsi2, _), o in zip(sibs, outs[1:]):
+                self.dense_pre[k2] = (rsi2, o)
+        # cnt may reach 65,535, so the packed entry may be negative: an
+        # arithmetic shift, then the low 16 bits
+        lo = pk & 0xFFFF
+        cg = (pk >> 16) & 0xFFFF
+        in_dom = ((l_ok >= klo) & (l_ok <= khi)
+                  & (torch.arange(n, device=dev) < lv.valid))
+        cnt = torch.where(in_dom, cg, torch.zeros((), dtype=cg.dtype,
+                                                  device=dev))
+        return dict(path="dense", rs_idx=rs_idx, lo=lo,
+                    cnt=cnt.to(torch.int64))
+
+    def _join_total(self, art: dict) -> int:
+        """The pair count, read to the host once per key pair."""
+        if "total_host" not in art:
+            art["total_host"] = self._read(art["total"])
+            art["syncs"] += 1
+        return art["total_host"]
+
+    def _expansion(self, art: dict, total: int) -> dict:
+        """Per output slot k < total: its left row ``li`` (ascending) and
+        its right row ``ri``, left rows in order and each left row's
+        matches in sorted right order.  Built once per key pair."""
+        hit = art.get("exp")
+        if hit is not None:
+            return hit
+        dev = self.device
+        n, m = art["n"], art["m"]
+        k = torch.arange(total, dtype=torch.int64, device=dev)
+        li = torch.clamp(_expand_li(art["cum"], k), 0, max(n - 1, 0))
+        if n < 2**31:
+            li = li.to(torch.int32)
+        cum, cnt, lo = gather_many([art["cum"], art["cnt"], art["lo"]], li,
+                                   total)
+        rpos = torch.clamp(lo + (k - (cum - cnt)), 0, max(m - 1, 0))
+        ri = gather_many([art["rs_idx"]], rpos, total,
+                         small=m <= SMALL_TABLE)[0]
+        art["exp"] = {"li": li, "ri": ri}
+        return art["exp"]
+
+    def _eval_join_index(self, v: V.Vexp, vx: V.JoinIndex) -> Val:
+        """One side of an equijoin.  Semi/anti: ascending positions of the
+        left rows with (without) a match, at the left side's length.  Inner
+        (left/right): one slot per pair, grouped by ascending left row.
+        Outer: the inner pairs, then one slot per unmatched left row in
+        ascending order (outer_right reads 0 there, outer_valid flags the
+        matched slots).  Inner and outer lengths are the pair counts, read
+        to the host once per key pair."""
+        art = self._join_artifacts(vx.lkeys, vx.rkeys)
+        dev = self.device
+        dt = dtype_for(v.info)
+        n, side = art["n"], vx.jside
+        syncs = art["syncs"]
+        if side not in (V.JLEFT, V.JRIGHT):
+            lmask = torch.arange(n, device=dev) < art["lvalid"]
+        if side in (V.JSEMI, V.JANTI):
+            has = art["cnt"] > 0
+            keep = (has if side == V.JSEMI else ~has) & lmask
+            sel = _sel_positions(keep, n)
+            nz = keep.sum()
+            out = Val(data=_mask_tail(sel.to(dt), nz, n), valid=nz, length=n)
+        else:
+            total = self._join_total(art)
+            exp = self._expansion(art, total)
+            if side == V.JLEFT:
+                parts, valid = [exp["li"]], total
+            elif side == V.JRIGHT:
+                parts, valid = [exp["ri"]], total
+            else:
+                un = art.get("unmatched")
+                if un is None:
+                    mask = (art["cnt"] == 0) & lmask
+                    n_un = self._read(mask.sum())
+                    art["syncs"] += 1
+                    un = art["unmatched"] = (
+                        _sel_positions(mask, max(n_un, 1))[:n_un], n_un)
+                un_sel, n_un = un
+                valid = total + n_un
+                if side == V.JOUTER_LEFT:
+                    parts = [exp["li"], un_sel]
+                elif side == V.JOUTER_RIGHT:
+                    parts = [exp["ri"],
+                             torch.zeros(n_un, dtype=dt, device=dev)]
+                else:  # JOUTER_VALID
+                    parts = [torch.ones(total, dtype=dt, device=dev),
+                             torch.zeros(n_un, dtype=dt, device=dev)]
+            B = max(valid, 1)
+            if valid < B:
+                parts.append(torch.zeros(B - valid, dtype=dt, device=dev))
+            out = Val(data=torch.cat([p.to(dt) for p in parts]), valid=valid,
+                      length=B)
+        self.join_log.append({"side": side, "path": art["path"], "n": n,
+                              "m": art["m"], "out": out.length,
+                              "syncs": art["syncs"] - syncs})
+        return out
 
     # ---------------------------------------------------------------- binops
     def _eval_binop(self, v: V.Vexp, vx: V.Binop) -> Val:
@@ -664,6 +1016,28 @@ def gather_mate_map(roots: List[V.Vexp]) -> dict:
     return out
 
 
+def join_key_pairs(roots: List[V.Vexp]):
+    """(lkeys, rkeys) of every JoinIndex under ``roots``, each pair once,
+    in dependency post-order."""
+    seen, seenp, out = set(), set(), []
+
+    def go(v: V.Vexp):
+        if v.skey in seen:
+            return
+        seen.add(v.skey)
+        for c in _children(v.vx):
+            go(c)
+        if isinstance(v.vx, V.JoinIndex):
+            kp = (v.vx.lkeys.skey, v.vx.rkeys.skey)
+            if kp not in seenp:
+                seenp.add(kp)
+                out.append((v.vx.lkeys, v.vx.rkeys))
+
+    for v in roots:
+        go(v)
+    return out
+
+
 def fused_agg_on(store: ColumnStore, loads) -> bool:
     """The fused-aggregate gate: MPLAN2VDL_FUSED_AGG=1/0 forces it; unset
     (or ``auto``) turns it on when a loaded column has FUSED_AUTO_ROWS."""
@@ -692,6 +1066,14 @@ class CompiledQuery:
 
             self.fold_map, self.families = plan_fusions(vexps)
         self.gather_mates = gather_mate_map(vexps)
+        sibs: Dict[int, list] = {}
+        for lk, rk in join_key_pairs(vexps):
+            sibs.setdefault(lk.skey, []).append((lk, rk))
+        self.dense_sibs = {k: tuple(ps) for k, ps in sibs.items()
+                           if len(ps) > 1}
+        self.lookups: dict = {}
+        self.join_log: List[dict] = []
+        self.host_syncs = 0
 
     def device_args(self) -> Tuple[torch.Tensor, ...]:
         """The loaded columns on the device (copied there on first use)."""
@@ -705,8 +1087,10 @@ class CompiledQuery:
     def run(self) -> List[Val]:
         """Evaluate the DAG; results stay on the device."""
         c = Compiler(self.store, self.device, self.fold_map, self.families,
-                     self.gather_mates)
-        return c.trace(self.vexps, dict(zip(self.loads, self.device_args())))
+                     self.gather_mates, self.dense_sibs, self.lookups)
+        out = c.trace(self.vexps, dict(zip(self.loads, self.device_args())))
+        self.join_log, self.host_syncs = c.join_log, c.host_syncs
+        return out
 
     def __call__(self) -> QueryResult:
         cols, names, dts = [], [], []

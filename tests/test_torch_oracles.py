@@ -1,6 +1,6 @@
 """chip_smoke.py's numpy join oracles against SQLite, on the CPU.
 
-The oracles decide whether the port's FK-join plans are right on the GPU,
+The oracles decide whether the port's join plans are right on the GPU,
 so they are held here against an independent SQL engine.  The store's
 columns go into an in-memory SQLite database the way
 tests/test_sqlite_oracle.py builds it (dates as ISO-8601 text; the
@@ -18,7 +18,8 @@ import chip_smoke
 from mplan2vdl_tpu_torch.engine import datagen
 
 DATE_COLS = {"l_shipdate", "l_commitdate", "l_receiptdate", "o_orderdate"}
-TEXT_COLS = {"c_mktsegment", "n_name", "r_name"}
+TEXT_COLS = {"c_mktsegment", "n_name", "r_name", "p_name", "p_brand",
+             "p_container", "o_comment", "c_phone"}
 SEEDS = (13, 17)
 
 
@@ -53,8 +54,10 @@ def store_db(request):
         db.executemany(f"INSERT INTO {tab} VALUES ({ph})", zip(*arrays))
     for tab, key in (("customer", "c_custkey"), ("orders", "o_orderkey"),
                      ("supplier", "s_suppkey"), ("nation", "n_nationkey"),
-                     ("lineitem", "l_orderkey")):
-        db.execute(f"CREATE INDEX {tab}_{key} ON {tab} ({key})")
+                     ("lineitem", "l_orderkey"), ("part", "p_partkey"),
+                     ("lineitem", "l_partkey"), ("orders", "o_custkey"),
+                     ("partsupp", "ps_partkey, ps_suppkey")):
+        db.execute(f"CREATE INDEX {tab}_{key[:10]} ON {tab} ({key})")
     db.commit()
     return store, db
 
@@ -110,3 +113,70 @@ def test_sparse_groupby_oracle_matches_sqlite(store_db):
         GROUP BY l_orderkey
     """))
     assert got and got == want
+
+
+def test_q9_oracle_matches_sqlite(store_db):
+    store, db = store_db
+    name, year, profit = chip_smoke.oracle_q9(store)
+    got = sorted(zip(_decode(store, "nation", "n_name", name),
+                     np.asarray(year, np.int64).tolist(),
+                     np.asarray(profit, np.int64).tolist()))
+    want = sorted(tuple(r) for r in db.execute("""
+        SELECT n_name, CAST(strftime('%Y', o_orderdate) AS INT),
+               SUM(l_extendedprice * (100 - l_discount)
+                   - ps_supplycost * l_quantity)
+        FROM part, supplier, lineitem, partsupp, orders, nation
+        WHERE s_suppkey = l_suppkey AND ps_suppkey = l_suppkey
+          AND ps_partkey = l_partkey AND p_partkey = l_partkey
+          AND o_orderkey = l_orderkey AND s_nationkey = n_nationkey
+          AND p_name LIKE '%green%'
+        GROUP BY 1, 2
+    """))
+    assert got and got == want
+
+
+def test_q13_oracle_matches_sqlite(store_db):
+    store, db = store_db
+    cols = chip_smoke.oracle_q13(store)
+    got = sorted(zip(*[np.asarray(c, np.int64).tolist() for c in cols]))
+    want = sorted(tuple(r) for r in db.execute("""
+        SELECT c_count, COUNT(*)
+        FROM (SELECT c_custkey, COUNT(o_orderkey) AS c_count
+              FROM customer LEFT OUTER JOIN orders
+                ON c_custkey = o_custkey
+               AND o_comment NOT LIKE '%special%requests%'
+              GROUP BY c_custkey)
+        GROUP BY c_count
+    """))
+    assert got and got == want
+    assert want[0][0] == 0  # customers with no order
+
+
+def test_q17_oracle_matches_sqlite(store_db):
+    """Q17 with the engine's exact-integer avg: sum / count of l_quantity
+    (integer division at its two decimal digits), 0.2 of it at three."""
+    store, db = store_db
+    (got,) = chip_smoke.oracle_q17(store)
+    (want,) = db.execute("""
+        SELECT COALESCE(SUM(l_extendedprice), 0) FROM lineitem, part
+        WHERE p_partkey = l_partkey AND p_brand = 'Brand#23'
+          AND p_container = 'MED BOX'
+          AND l_quantity * 10 < 2 * (SELECT SUM(l2.l_quantity) / COUNT(*)
+                                     FROM lineitem AS l2
+                                     WHERE l2.l_partkey = p_partkey)
+    """).fetchone()
+    assert got.tolist() == [want]
+
+
+def test_substr_groupby_oracle_matches_sqlite(store_db):
+    store, db = store_db
+    code, n, total = chip_smoke.oracle_substr_groupby(store)
+    _, derived = chip_smoke.substr_codes(store, "customer", "c_phone", 1, 2)
+    got = sorted(zip([derived[int(c)] for c in code],
+                     np.asarray(n, np.int64).tolist(),
+                     np.asarray(total, np.int64).tolist()))
+    want = sorted(tuple(r) for r in db.execute("""
+        SELECT substr(c_phone, 1, 2), COUNT(*), SUM(c_acctbal)
+        FROM customer GROUP BY 1
+    """))
+    assert len(got) > 1 and got == want
