@@ -32,12 +32,18 @@ Phases (any failure ends the run with a nonzero exit; nothing is caught):
      l_orderkey, then the general-join path: TPC-H Q9 (no-order form, a
      LIKE), Q13 (a left outer join), Q17 (MonetDB's decorrelated form, a
      join against a derived table) and a group-by over substring(c_phone,
-     1, 2) (a dictionary recode).  Each run is row-exact against its
-     oracle, and the engine kernels' launch counters are read around it
-     (Q6 and every Q1 run must compact; the fused Q1 runs launch the fused
-     aggregate once; the general-join runs launch the compaction and both
-     gathers between them); the shape of each engine scatter (Q3's and
-     Q5's) is printed, and each equijoin's side, path (dense or merge),
+     1, 2) (a dictionary recode), then the ordered path: TPC-H Q4 (a
+     semijoin that marks orders through a scatter of repeated positions,
+     ORDER BY), Q3 with its ORDER BY revenue DESC, o_orderdate LIMIT 10,
+     and Q16 (LIKE, an antijoin, count(DISTINCT), a four-key ORDER BY).
+     Each run is row-exact against its oracle (Q4 and Q16 in order, Q3's
+     top 10 tie-tolerantly), and the engine kernels' launch counters are
+     read around it (Q6 and every Q1 run must compact; the fused Q1 runs
+     launch the fused aggregate once; the general-join runs launch the
+     compaction and both gathers between them; each ordered run launches
+     the compaction, the gather and the scatter); the shape of each engine
+     scatter is printed, Q4's repeated-position scatter with its count of
+     distinct positions, and each equijoin's side, path (dense or merge),
      sizes and host syncs; ``--profile`` adds each engine kernel's device
      time per query;
   5. the probes: ``tools.probe_kernels`` (every pattern probe OK, each
@@ -122,6 +128,51 @@ PLAN_Q3 = """project (
 | | ) [ orders.o_orderkey NOT NULL = lineitem.l_orderkey NOT NULL ]
 | ) [ lineitem.l_orderkey, orders.o_orderdate, orders.o_shippriority ] [ lineitem.l_orderkey, sys.sum no nil (sys.sql_mul(lineitem.l_extendedprice NOT NULL, sys.sql_sub(decimal(15,2) "100", lineitem.l_discount NOT NULL))) as L1.L1, orders.o_orderdate, orders.o_shippriority ]
 ) [ lineitem.l_orderkey, L1 as L2.revenue, orders.o_orderdate, orders.o_shippriority ]
+"""
+
+# TPC-H Q3 in its real form: PLAN_Q3 ordered by revenue descending (an
+# order column without ASC sorts descending), then o_orderdate, and cut to
+# the first 10 rows
+PLAN_Q3_TOP10 = ("top N (\n" + PLAN_Q3[:-len("\n")]
+                 + " [ L2.revenue, orders.o_orderdate ASC ]\n"
+                 + ') [ wrd "10" ]\n')
+
+# TPC-H Q4: the 1993-07-01 to 1993-10-01 orders with a lineitem received
+# after its commit date (a semijoin that keeps the orders side), counted per
+# o_orderpriority, in order of it
+PLAN_Q4 = """project (
+| group by (
+| | semijoin (
+| | | select (
+| | | | table(sys.orders) [ orders.o_orderkey NOT NULL, orders.o_orderdate NOT NULL, orders.o_orderpriority NOT NULL ] COUNT
+| | | ) [ orders.o_orderdate NOT NULL >= date "1993-07-01", orders.o_orderdate NOT NULL < date "1993-10-01" ],
+| | | select (
+| | | | table(sys.lineitem) [ lineitem.l_orderkey NOT NULL, lineitem.l_commitdate NOT NULL, lineitem.l_receiptdate NOT NULL ] COUNT
+| | | ) [ lineitem.l_commitdate NOT NULL < lineitem.l_receiptdate NOT NULL ]
+| | ) [ orders.o_orderkey NOT NULL = lineitem.l_orderkey NOT NULL ]
+| ) [ orders.o_orderpriority ] [ orders.o_orderpriority, sys.count() NOT NULL as L1.order_count ]
+) [ orders.o_orderpriority, L1.order_count ] [ orders.o_orderpriority ASC ]
+"""
+
+# TPC-H Q16: partsupp of the parts outside Brand#45 and MEDIUM POLISHED% in
+# eight sizes, without the suppliers whose comment holds
+# Customer...Complaints (an antijoin), the distinct suppliers per (brand,
+# type, size), ordered by that count descending, then brand, type, size
+PLAN_Q16 = """project (
+| group by (
+| | antijoin (
+| | | join (
+| | | | table(sys.partsupp) [ partsupp.ps_partkey NOT NULL, partsupp.ps_suppkey NOT NULL ] COUNT,
+| | | | select (
+| | | | | table(sys.part) [ part.p_partkey NOT NULL, part.p_brand NOT NULL, part.p_type NOT NULL, part.p_size NOT NULL ] COUNT
+| | | | ) [ part.p_brand NOT NULL != char(10) "Brand#45", part.p_type NOT NULL ! FILTER like (varchar[char(25) "MEDIUM POLISHED%"], varchar ""), part.p_size NOT NULL in (int "49", int "14", int "23", int "45", int "19", int "3", int "36", int "9") ]
+| | | ) [ part.p_partkey NOT NULL = partsupp.ps_partkey NOT NULL ],
+| | | select (
+| | | | table(sys.supplier) [ supplier.s_suppkey NOT NULL, supplier.s_comment NOT NULL ] COUNT
+| | | ) [ supplier.s_comment NOT NULL FILTER like (varchar[char(25) "%Customer%Complaints%"], varchar "") ]
+| | ) [ partsupp.ps_suppkey NOT NULL = supplier.s_suppkey NOT NULL ]
+| ) [ part.p_brand, part.p_type, part.p_size ] [ part.p_brand, part.p_type, part.p_size, sys.count unique no nil (partsupp.ps_suppkey NOT NULL) NOT NULL as L1.supplier_cnt ]
+) [ part.p_brand, part.p_type, part.p_size, L1.supplier_cnt ] [ L1.supplier_cnt, part.p_brand ASC, part.p_type ASC, part.p_size ASC ]
 """
 
 # TPC-H Q5: five FK joins, the non-FK condition c_nationkey = s_nationkey,
@@ -310,10 +361,15 @@ Q9_COLUMNS = ["nation", "o_year", "sum_profit"]
 Q13_COLUMNS = ["c_count", "custdist"]
 Q17_COLUMNS = ["sum_price"]
 SUBSTR_COLUMNS = ["cntrycode", "numcust", "totacctbal"]
+Q4_COLUMNS = ["o_orderpriority", "order_count"]
+Q16_COLUMNS = ["p_brand", "p_type", "p_size", "supplier_cnt"]
 # the query runs of the general-join slice, and the engine kernels they
 # must launch between them
 JOIN_RUNS = ("Q9", "Q13", "Q17", "substring group-by")
 JOIN_KERNELS = ("compact", "gather", "small_gather")
+# the engine kernels each ordered run (ORDER BY, top N, the
+# repeated-position scatter, count(DISTINCT)) must launch
+ORDERED_KERNELS = ("compact", "gather", "scatter")
 
 
 # ---------------------------------------------------------------- oracles
@@ -502,6 +558,69 @@ def oracle_q17(st):
     below = qty * 10 < 2 * avg[inv]
     price = c("lineitem", "l_extendedprice")[sel][below].astype(np.int64)
     return [np.asarray([price.sum()], np.int64)]
+
+
+def _by_order(cols, spec):
+    """The rows of ``cols`` sorted by ``spec``, (column, descending) pairs
+    with the first the major key; ties keep their order."""
+    import numpy as np
+
+    keys = [-np.asarray(cols[i], np.int64) if desc
+            else np.asarray(cols[i], np.int64) for i, desc in spec]
+    order = np.lexsort(keys[::-1])
+    return [np.asarray(c)[order] for c in cols]
+
+
+def oracle_q4(st):
+    import numpy as np
+
+    c = lambda t, n: st.columns[(t, n)]  # noqa: E731
+    late = c("lineitem", "l_commitdate") < c("lineitem", "l_receiptdate")
+    oi, ofound = _pk_lookup(c("orders", "o_orderkey"),
+                            c("lineitem", "l_orderkey")[late])
+    has_late = np.zeros(len(c("orders", "o_orderkey")), bool)
+    has_late[oi[ofound]] = True
+    odate = c("orders", "o_orderdate")
+    m = has_late & (odate >= _day(1993, 7, 1)) & (odate < _day(1993, 10, 1))
+    # _group's keys ascend: the order of o_orderpriority's codes
+    return _group([c("orders", "o_orderpriority")[m]],
+                  [(np.ones(int(m.sum()), np.int64), np.add)])
+
+
+def q3_top10(q3):
+    """Q3's rows (``oracle_q3``) ordered by revenue descending, then
+    o_orderdate; the first 10 (rows tied at the cut may be any of them)."""
+    return [col[:10] for col in _by_order(q3, [(1, True), (2, False)])]
+
+
+def oracle_q3_top10(st):
+    return q3_top10(oracle_q3(st))
+
+
+def oracle_q16(st):
+    import numpy as np
+
+    c = lambda t, n: st.columns[(t, n)]  # noqa: E731
+    ok = ((c("part", "p_brand") != _code(st, "part", "p_brand", "Brand#45"))
+          & ~np.isin(c("part", "p_type"), _codes_matching(
+              st, "part", "p_type", "^MEDIUM POLISHED"))
+          & np.isin(c("part", "p_size"), [49, 14, 23, 45, 19, 3, 36, 9]))
+    pi, pfound = _pk_lookup(c("part", "p_partkey"),
+                            c("partsupp", "ps_partkey"))
+    complaints = c("supplier", "s_suppkey")[np.isin(
+        c("supplier", "s_comment"),
+        _codes_matching(st, "supplier", "s_comment", "Customer.*Complaints"))]
+    sk = c("partsupp", "ps_suppkey")
+    m = pfound & ok[pi] & ~np.isin(sk, complaints)
+    pi = pi[m]
+    # the distinct (brand, type, size, supplier) rows, then a count of them
+    # per (brand, type, size)
+    keys = [c("part", "p_brand")[pi], c("part", "p_type")[pi],
+            c("part", "p_size")[pi], sk[m]]
+    distinct = _group(keys, [])
+    cols = _group(distinct[:3], [(np.ones(len(distinct[0]), np.int64),
+                                  np.add)])
+    return _by_order(cols, [(3, True), (0, False), (1, False), (2, False)])
 
 
 def substr_codes(st, tab, col, start, length):
@@ -1392,16 +1511,44 @@ class Smoke:
             for g, w in zip(res.columns, want_fp, strict=True):
                 assert np.array_equal(g, w), "filter-project rows differ"
 
-        def check_rows(columns, oracle):
+        def oracle_rows(oracle):
             t0 = time.perf_counter()
             want = oracle(st)
             print(json.dumps({"oracle": oracle.__name__,
                               "s": time.perf_counter() - t0}), flush=True)
+            return want
 
+        def check_rows(columns, want):
             def check(res):
                 assert [nm[-1] for nm in res.names] == columns, res.names
                 assert same_rows(res.columns, want), "rows differ"
             return check
+
+        def check_in_order(columns, want):
+            def check(res):
+                assert [nm[-1] for nm in res.names] == columns, res.names
+                assert len(res.columns) == len(want)
+                for g, w in zip(res.columns, want):
+                    assert np.array_equal(np.asarray(g, np.int64),
+                                          np.asarray(w, np.int64)), \
+                        "rows differ or are out of order"
+            return check
+
+        def check_top10(res):
+            # tie-tolerant: sorted by revenue descending, then o_orderdate,
+            # and the same multiset of (revenue, o_orderdate) as the oracle
+            assert [nm[-1] for nm in res.names] == Q3_COLUMNS, res.names
+            rev = np.asarray(res.columns[1], np.int64)
+            date = np.asarray(res.columns[2], np.int64)
+            keys = list(zip((-rev).tolist(), date.tolist()))
+            assert len(keys) == 10 and keys == sorted(keys), "not sorted"
+            assert sorted(zip(rev.tolist(), date.tolist())) == sorted(zip(
+                np.asarray(want_top10[1], np.int64).tolist(),
+                np.asarray(want_top10[2], np.int64).tolist())), \
+                "order keys differ"
+
+        want_q3 = oracle_rows(oracle_q3)
+        want_top10 = q3_top10(want_q3)
 
         q1_auto = "Q1 fused (auto gate)" if fused_agg_on(
             st, [("lineitem", "l_quantity")]) else "Q1 (auto gate: unfused)"
@@ -1419,22 +1566,36 @@ class Smoke:
                  ("Q1 unfused (MPLAN2VDL_FUSED_AGG=0)", PLAN_Q1, "0",
                   check_q1, ("compact",)),
                  ("filter-project", PLAN_FILTER_PROJECT, None, check_fp, ()),
-                 ("Q3", PLAN_Q3, None, check_rows(Q3_COLUMNS, oracle_q3),
+                 ("Q3", PLAN_Q3, None, check_rows(Q3_COLUMNS, want_q3),
                   ("compact", "gather", "scatter")),
-                 ("Q5", PLAN_Q5, None, check_rows(Q5_COLUMNS, oracle_q5),
+                 ("Q5", PLAN_Q5, None,
+                  check_rows(Q5_COLUMNS, oracle_rows(oracle_q5)),
                   ("compact", "gather", "scatter", "small_gather")),
                  ("sparse group-by", PLAN_SPARSE_GROUPBY, None,
-                  check_rows(SPARSE_COLUMNS, oracle_sparse_groupby),
+                  check_rows(SPARSE_COLUMNS,
+                             oracle_rows(oracle_sparse_groupby)),
                   ("compact", "gather")),
-                 ("Q9", PLAN_Q9, None, check_rows(Q9_COLUMNS, oracle_q9),
+                 ("Q9", PLAN_Q9, None,
+                  check_rows(Q9_COLUMNS, oracle_rows(oracle_q9)),
                   ("compact", "gather", "small_gather", "scatter")),
-                 ("Q13", PLAN_Q13, None, check_rows(Q13_COLUMNS, oracle_q13),
+                 ("Q13", PLAN_Q13, None,
+                  check_rows(Q13_COLUMNS, oracle_rows(oracle_q13)),
                   ("compact", "gather", "small_gather")),
-                 ("Q17", PLAN_Q17, None, check_rows(Q17_COLUMNS, oracle_q17),
+                 ("Q17", PLAN_Q17, None,
+                  check_rows(Q17_COLUMNS, oracle_rows(oracle_q17)),
                   ("compact", "gather")),
                  ("substring group-by", PLAN_SUBSTR_GROUPBY, None,
-                  check_rows(SUBSTR_COLUMNS, oracle_substr_groupby),
-                  ("compact", "small_gather"))]
+                  check_rows(SUBSTR_COLUMNS,
+                             oracle_rows(oracle_substr_groupby)),
+                  ("compact", "small_gather")),
+                 ("Q4", PLAN_Q4, None,
+                  check_in_order(Q4_COLUMNS, oracle_rows(oracle_q4)),
+                  ORDERED_KERNELS),
+                 ("Q3 top 10", PLAN_Q3_TOP10, None, check_top10,
+                  ORDERED_KERNELS),
+                 ("Q16", PLAN_Q16, None,
+                  check_in_order(Q16_COLUMNS, oracle_rows(oracle_q16)),
+                  ORDERED_KERNELS)]
         total = {k: 0 for k in counters}
         join_total = {k: 0 for k in counters}
         os.environ.pop("MPLAN2VDL_MXU_AGG", None)
@@ -1454,6 +1615,20 @@ class Smoke:
                 return scatter.monotone_scatter(p, src, L)
             return call
 
+        # the repeated-position scatters (plain torch) of each query's first
+        # run: shapes and the count of distinct in-range positions
+        repeats = {}
+
+        def record_repeat(query):
+            def call(p, src, L):
+                live = p[p < L]
+                repeats.setdefault(query, []).append({
+                    "n": p.shape[0], "L": L, "valid": live.shape[0],
+                    "distinct": int(self.torch.unique(live).numel())})
+                return repeat_scatter(p, src, L)
+            return call
+        repeat_scatter = lower.repeat_scatter
+
         for name, plan, fused, check, must in runs:
             if fused is None:
                 os.environ.pop("MPLAN2VDL_FUSED_AGG", None)
@@ -1471,10 +1646,12 @@ class Smoke:
             for mod, attr in counters.values():
                 setattr(mod, attr, 0)
             lower.monotone_scatter = record_scatter(name)
+            lower.repeat_scatter = record_repeat(name)
             try:
                 res = cq()
             finally:
                 lower.monotone_scatter = scatter.monotone_scatter
+                lower.repeat_scatter = repeat_scatter
             launches = {k: getattr(mod, attr)
                         for k, (mod, attr) in counters.items()}
             for k in total:
@@ -1485,7 +1662,16 @@ class Smoke:
             # counts it read to the host
             for j in cq.join_log:
                 print(json.dumps({"join": name, **j}), flush=True)
+            for r in repeats.get(name, ()):
+                print(json.dumps({"repeat_scatter": name, **r}), flush=True)
             check(res)
+            if name == "Q4":
+                # the semijoin's marks: one scatter through repeated
+                # positions (several late lineitems of one order)
+                rs = repeats.get(name, [])
+                if len(rs) != 1 or rs[0]["distinct"] >= rs[0]["valid"]:
+                    raise AssertionError(f"Q4: repeated-position scatters "
+                                         f"{rs}, not one with repeats")
             idle = [k for k in must if launches[k] == 0]
             if idle:
                 raise AssertionError(f"{name} launched no {idle} kernel")
@@ -1520,7 +1706,9 @@ class Smoke:
                    "bound_ms": _bound_ms(nbytes), "load_ms": load_ms,
                    "peak_gb": self.torch.cuda.max_memory_allocated() / 1e9,
                    "launches": launches, "host_syncs": cq.host_syncs,
-                   "joins": cq.join_log, "card": self.smi}
+                   "joins": cq.join_log,
+                   "repeat_scatters": repeats.get(name, []),
+                   "card": self.smi}
             if self.args.profile:
                 rec["profile"] = self.profile(name, cq)
             self.records["queries"].append(rec)
@@ -1529,6 +1717,7 @@ class Smoke:
             del cq
         self.launches = total
         self.records["engine_scatters"] = scatters
+        self.records["repeat_scatters"] = repeats
         print(json.dumps({"engine_scatters": scatters}), flush=True)
         if self.args.profile:
             dev = {k: [0, 0.0] for k in counters}

@@ -13,18 +13,22 @@ Physical dtypes are chosen per node from the catalog's value bounds (int32
 when they fit, int64 otherwise); integers are native int64, with no
 plane splitting.
 
-The port evaluates Load, RangeC, RangeV, Binop, ``Shuffle GATHER``,
-``Shuffle SCATTER`` through unique monotone positions, ``Fold FSel``,
-dense-domain folds (one masked reduction per group id, or the fused
-multi-aggregate kernel for families of folds sharing a group key), the
-sparse sort-based group-by, Partition, ``Like`` and ``DictMap`` (a lookup
-table over the code domain, built once per compiled query),
+The port evaluates every kind of VIR node: Load, RangeC, RangeV, Binop,
+``Shuffle GATHER``, ``Shuffle SCATTER`` (the monotone scatter kernel for
+unique ascending positions, a plain scatter through a dump slot for any
+others), ``Fold FSel``, dense-domain folds (one masked reduction per group
+id, or the fused multi-aggregate kernel for families of folds sharing a
+group key), the sparse sort-based group-by, ``Fold FDistinct`` (a sort of
+(group, value) pairs and a count of the adjacent-unique ones), Partition,
+``Semisort`` and ``SortPerm`` (stable sorts), ``Like`` and ``DictMap`` (a
+lookup table over the code domain, built once per compiled query),
 ``CrossProduct``, and ``JoinIndex`` with all seven sides (sort-merge, or
 the dense-domain join for a small build side).  On the GPU, compaction,
-the gathers, the scatter and the fused aggregate (with MPLAN2VDL_MXU_AGG=1
-its sums on the tensor cores) run as hand-written CUDA kernels
-(``kernels/``).  Every other node kind raises ``NotImplementedError``
-naming it: a plan beyond the port fails loudly.
+the gathers, the monotone scatter and the fused aggregate (with
+MPLAN2VDL_MXU_AGG=1 its sums on the tensor cores) run as hand-written CUDA
+kernels (``kernels/``); the sorts and the other scatters are torch ops, as
+the JAX engine computes them outside its kernels too.  A node of an
+unknown kind raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -171,6 +175,67 @@ def _monotone_positions(v: V.Vexp) -> bool:
     return False
 
 
+def repeat_scatter(p: torch.Tensor, src: torch.Tensor, L: int
+                   ) -> torch.Tensor:
+    """``out[p[i]] = src[i]`` into ``L`` zeroed slots through positions in
+    any order, repeats included: ``p`` is int64 in [0, L], and slot ``L``
+    is a dump slot that takes the rows to drop.  Where two rows write one
+    slot, which of them wins is unspecified, as under the JAX engine's
+    ``.at[].set``; every VIR emitter writes equal values (ones) through
+    repeated positions, so any writer gives the same vector."""
+    out = torch.zeros(L + 1, dtype=src.dtype, device=src.device)
+    out.scatter_(0, p, src)
+    return out[:L]
+
+
+def _changes(x: torch.Tensor) -> torch.Tensor:
+    """Whether each entry differs from the one before it (the first
+    always does)."""
+    return x != torch.cat([x[:1] - 1, x[:-1]])
+
+
+def _run_ends(starts: torch.Tensor, nruns, nvalid, n: int) -> torch.Tensor:
+    """The last sorted row of each run, from the runs' first rows
+    ``starts`` (ascending, int64), the run count and the count of valid
+    sorted rows; 0 past ``nruns``."""
+    dev = starts.device
+    next_start = torch.cat([starts[1:], _i64([n], dev)])
+    kidx = torch.arange(starts.shape[0], device=dev)
+    ends = torch.where(kidx + 1 < nruns, next_start - 1, _i64(0, dev))
+    return torch.where(kidx + 1 == nruns, nvalid - 1, ends)
+
+
+def _run_sums(cs: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
+              nruns) -> torch.Tensor:
+    """Each run's sum from the inclusive int64 prefix sum ``cs`` of the
+    sorted rows: ``cs[end] - cs[start - 1]``; 0 past ``nruns``."""
+    dev, n = cs.device, cs.shape[0]
+    zero = _i64(0, dev)
+    at_end = cs[torch.clamp(ends, 0, n - 1)]
+    before = torch.where(starts > 0, cs[torch.clamp(starts - 1, 0, n - 1)],
+                         zero)
+    kmask = torch.arange(starts.shape[0], device=dev) < nruns
+    return torch.where(kmask, at_end - before, zero)
+
+
+def _sort_pairs(ids: torch.Tensor, vals: torch.Tensor, domain: int,
+                vlo: int, vhi: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (id, value) pairs sorted by id, then value: (sorted ids, whether
+    each sorted pair differs from the one before it).  Ids lie in
+    [0, domain] and values in [vlo, vhi].  One sort of the packed key
+    ``id * W + (value - vlo)``, in int32 when it fits and in int64 below
+    2**62; two stable sorts, value first, where it does not fit."""
+    W = vhi - vlo + 1
+    top = (domain + 1) * W
+    if top <= 2**62:
+        kdt = torch.int32 if top <= 2**31 - 1 else torch.int64
+        key, _ = torch.sort(ids.to(kdt) * W + (vals.to(kdt) - vlo))
+        return torch.div(key, W, rounding_mode="floor"), _changes(key)
+    sv, o1 = torch.sort(vals, stable=True)
+    sid, o2 = torch.sort(ids[o1], stable=True)
+    return sid, _changes(sid) | _changes(sv[o2])
+
+
 def _outside_slice(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to mplan2vdl_tpu_torch yet")
@@ -304,6 +369,16 @@ class Compiler:
         if isinstance(vx, V.Partition):
             return self._eval_partition(v, vx)
 
+        if isinstance(vx, V.Semisort):
+            # the stable argsort of the whole buffer, padding included, as
+            # the JAX engine sorts it
+            s = self._force(self.eval(vx.sdata))
+            _, perm = torch.sort(s.data, stable=True)
+            return Val(data=perm.to(dt), valid=s.valid, length=s.length)
+
+        if isinstance(vx, V.SortPerm):
+            return self._eval_sortperm(vx, dt)
+
         if isinstance(vx, V.VShuffle):
             # any permutation is legal; identity preserves determinism
             return self.eval(vx.varg)
@@ -379,12 +454,13 @@ class Compiler:
 
     # --------------------------------------------------------------- scatter
     def _eval_scatter(self, vx: V.Shuffle, dt) -> Val:
-        """Scatter through unique monotone positions (FK mask deduction,
-        relational Scatter of compactions) into ``L`` slots: the monotone
-        scatter kernel.  Invalid rows map to ``L`` and are dropped."""
-        if not (vx.shpos.quant == V.UNIQUE and self._monotone(vx.shpos)):
-            raise _outside_slice("Shuffle SCATTER with non-unique or "
-                                 "non-monotone positions")
+        """Scatter into ``L`` slots.  Unique monotone positions (FK mask
+        deduction, relational Scatter of compactions) take the monotone
+        scatter kernel, whose contract is strictly ascending positions;
+        any others (the FK semijoin keeping the dimension side, semi, anti
+        and outer joins with extra conditions) take ``repeat_scatter``.
+        Invalid rows map to ``L`` and are dropped, as are positions past
+        ``L``; VIR positions are never negative."""
         src = self._force(self.eval(vx.shsource))
         pos = self._force(self.eval(vx.shpos))
         if vx.shshape is not None:
@@ -395,10 +471,39 @@ class Compiler:
         pdt = pos.data.dtype if L <= INT32_MAX else torch.int64
         idx = torch.arange(n, device=self.device)
         limit = _vmin(src.valid, pos.valid, self.device)
-        p = torch.where(idx < limit, pos.data[:n].to(pdt),
-                        torch.full((), L, dtype=pdt, device=self.device))
-        out = monotone_scatter(p, src.data[:n].to(dt), L)
+        if vx.shpos.quant == V.UNIQUE and self._monotone(vx.shpos):
+            p = torch.where(idx < limit, pos.data[:n].to(pdt),
+                            torch.full((), L, dtype=pdt, device=self.device))
+            out = monotone_scatter(p, src.data[:n].to(dt), L)
+        else:
+            p = torch.where(idx < limit,
+                            torch.clamp(pos.data[:n].to(torch.int64), max=L),
+                            _i64(L, self.device))
+            out = repeat_scatter(p, src.data[:n].to(dt), L)
         return Val(data=out, valid=L, length=L)
+
+    # ------------------------------------------------------------------ sort
+    def _eval_sortperm(self, vx: V.SortPerm, dt) -> Val:
+        """ORDER BY's permutation: stable sorts composed last key first,
+        each key in int64 (negated when descending).  Rows past the first
+        key's ``valid`` take 2**62 and sink to the end in either
+        direction."""
+        vals = [self._force(self.eval(k)) for k in vx.keys]
+        n = vals[0].length
+        dev = self.device
+        validmask = torch.arange(n, device=dev) < vals[0].valid
+        big = _i64(2**62, dev)
+        perm = None  # the identity until the first sort
+        for kv, desc in list(zip(vals, vx.descs))[::-1]:
+            kd = kv.data.to(torch.int64)
+            key = torch.where(validmask, -kd if desc else kd, big)
+            if perm is None:
+                _, perm = torch.sort(key, stable=True)
+            else:
+                _, order = torch.sort(key[perm], stable=True)
+                perm = perm[order]
+        data = _mask_tail(perm.to(dt), vals[0].valid, n)
+        return Val(data=data, valid=vals[0].valid, length=n)
 
     # ------------------------------------------------------ Like / DictMap
     def _eval_like(self, v: V.Vexp, vx: V.Like) -> Val:
@@ -792,19 +897,14 @@ class Compiler:
         if n < 2**31:
             perm = perm.to(torch.int32)
         sorted_valid = sorted_ids < domain
-        prev = torch.cat([sorted_ids[:1] - 1, sorted_ids[:-1]])
-        head = sorted_ids != prev
+        head = _changes(sorted_ids)
         run_id = scan.cumsum_flags(head) - 1
         run_ok = torch.where(sorted_valid, run_id, _i64(L_out, dev))
         ngroups = (head & sorted_valid).sum()
         nvalid = sorted_valid.sum()
         # run starts ascend (the compaction kernel); L_out <= n
         starts = _sel_positions(head, L_out).to(torch.int64)
-        next_start = torch.cat([starts[1:], _i64([n], dev)])
-        kidx = torch.arange(L_out, device=dev)
-        ends = torch.where(kidx + 1 < ngroups, next_start - 1,
-                           _i64(0, dev))
-        ends = torch.where(kidx + 1 == ngroups, nvalid - 1, ends)
+        ends = _run_ends(starts, ngroups, nvalid, n)
         return {"dense": False, "n": n, "perm": perm, "run_ok": run_ok,
                 "ngroups": ngroups, "nvalid": nvalid, "starts": starts,
                 "ends": ends}
@@ -813,13 +913,13 @@ class Compiler:
         fam = self.fold_map.get(v.skey)
         if fam is not None:
             return self._eval_fused(v, fam)
-        if vx.foldop == V.FDISTINCT:
-            raise _outside_slice("Fold FDistinct")
         dt = dtype_for(v.info)
         g = self.eval(vx.fgroups)
         domain = vx.fgroups.info.bounds[1] + 1
         dval = self._force(self.eval(vx.fdata))
         L_out = min(domain, g.length, dval.length)
+        if vx.foldop == V.FDISTINCT:
+            return self._eval_fold_distinct(vx, dt, domain, L_out)
         art = self._group_artifacts(vx.fgroups, L_out, vx.fmask)
         n = art["n"]
         if dval.length < n:
@@ -841,6 +941,55 @@ class Compiler:
         out = _mask_tail(out.to(dt), ngroups, L_out)
         return Val(data=out, valid=ngroups, length=L_out)
 
+    def _eval_fold_distinct(self, vx: V.Fold, dt, domain: int,
+                            L_out: int) -> Val:
+        """count(DISTINCT x) per group: sort the (group id, value) pairs,
+        flag the adjacent-unique ones, and count the flags per group, by
+        one masked reduction per id over a small domain or by a prefix sum
+        read at the group runs' ends otherwise.  Output slots are the
+        ascending occupied group ids, aligned with the sibling folds on the
+        same key.  Masked-out rows take the id ``domain`` and value 0."""
+        dev = self.device
+        gv = self._force(self.eval(vx.fgroups))
+        dv = self._force(self.eval(vx.fdata))
+        n = min(gv.length, dv.length)
+        validmask = (torch.arange(n, device=dev)
+                     < _vmin(gv.valid, dv.valid, dev))
+        if vx.fmask is not None:
+            m = self._force(self.eval(vx.fmask))
+            validmask = validmask & (m.data[:n] != 0)
+        # int32 keys when the bounds allow
+        dlo, dhi = vx.fdata.info.bounds
+        use32 = (domain < 2**31 - 1 and dlo > -(2**31) + 1
+                 and dhi < 2**31 - 1)
+        kdt = torch.int32 if use32 else torch.int64
+        ids = torch.clamp(gv.data[:n].to(kdt), 0, domain - 1)
+        ids_ok = torch.where(validmask, ids,
+                             torch.full((), domain, dtype=kdt, device=dev))
+        vals = torch.where(validmask, dv.data[:n].to(kdt),
+                           torch.zeros((), dtype=kdt, device=dev))
+        sid, fresh = _sort_pairs(ids_ok, vals, domain, min(dlo, 0),
+                                 max(dhi, 0))
+        svalid = sid < domain
+        new_pair = fresh & svalid
+        if domain <= segred.SMALL_DOMAIN:
+            agg, counts = segred.masked_group_reduce_with_counts(
+                new_pair.to(torch.int64), sid, domain, "sum")
+            occ = counts > 0
+            ngroups = occ.sum()
+            out = agg[_sel_positions(occ, L_out).long()]
+        else:
+            # the group runs of the sorted stream: their heads, first and
+            # last rows, and the new-pair flags counted between them
+            head = _changes(sid) & svalid
+            ngroups = head.sum()
+            starts = _sel_positions(head, L_out).to(torch.int64)
+            out = _run_sums(scan.cumsum_flags(new_pair), starts,
+                            _run_ends(starts, ngroups, svalid.sum(), n),
+                            ngroups)
+        out = _mask_tail(out.to(dt), ngroups, L_out)
+        return Val(data=out, valid=ngroups, length=L_out)
+
     def _eval_sparse_fold(self, vx: V.Fold, art: dict, data: torch.Tensor,
                           dt, L_out: int) -> Val:
         """One fold over the sorted runs: a sum is the difference of an
@@ -854,11 +1003,8 @@ class Compiler:
         zero = _i64(0, dev)
         starts = torch.clamp(art["starts"], 0, n - 1)
         if vx.foldop == V.FSUM:
-            cs = torch.cumsum(sd.to(torch.int64), 0)
-            at_end = cs[torch.clamp(art["ends"], 0, n - 1)]
-            before = torch.where(starts > 0,
-                                 cs[torch.clamp(starts - 1, 0, n - 1)], zero)
-            out = torch.where(kmask, at_end - before, zero)
+            out = _run_sums(torch.cumsum(sd.to(torch.int64), 0),
+                            art["starts"], art["ends"], ngroups)
         elif vx.foldop == V.FCHOOSE:
             out = torch.where(kmask, sd[starts].to(torch.int64), zero)
         else:  # FMIN / FMAX

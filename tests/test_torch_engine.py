@@ -210,15 +210,24 @@ def test_decoded_matches_jax(stores):
 
 
 def test_outside_slice_raises(stores):
-    """A plan beyond the slice fails loudly: an ORDER BY (SortPerm)."""
+    """A node of a kind the evaluator does not know fails loudly, naming
+    the kind."""
+    import dataclasses
+
+    import torch
+
+    from mplan2vdl_tpu_torch import vir as tV
+
+    @dataclasses.dataclass(frozen=True)
+    class UnknownNode:
+        arg: tV.Vexp
+
     ts, tcfg, _, _ = stores[SEEDS[0]]
-    text = chip_smoke.PLAN_FILTER_PROJECT.replace(
-        "lineitem.l_discount ]\n",
-        "lineitem.l_discount ] [ lineitem.l_quantity ASC ]\n")
-    assert text != chip_smoke.PLAN_FILTER_PROJECT
-    cq = tlower.compile_plan_text(text, tcfg, ts, device="cpu")
-    with pytest.raises(NotImplementedError, match="SortPerm"):
-        cq()
+    q = tV.load_raw(tcfg, ("lineitem", "l_quantity"))
+    v = dataclasses.replace(q, vx=UnknownNode(arg=q), skey=-1)
+    c = tlower.Compiler(ts, torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="UnknownNode"):
+        c.trace([v], {})
 
 
 @pytest.mark.parametrize("plan,decode", [("q1", True),

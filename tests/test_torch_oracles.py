@@ -1,7 +1,9 @@
 """chip_smoke.py's numpy join oracles against SQLite, on the CPU.
 
 The oracles decide whether the port's join plans are right on the GPU,
-so they are held here against an independent SQL engine.  The store's
+so they are held here against an independent SQL engine; the oracles of
+the ordered plans (Q4, Q3 with its LIMIT 10, Q16) also against the port's
+CPU run of each plan, in order.  The store's
 columns go into an in-memory SQLite database the way
 tests/test_sqlite_oracle.py builds it (dates as ISO-8601 text; the
 dictionary columns the queries filter or group on as their strings), and
@@ -16,10 +18,12 @@ import pytest
 
 import chip_smoke
 from mplan2vdl_tpu_torch.engine import datagen
+from mplan2vdl_tpu_torch.engine import lower
 
 DATE_COLS = {"l_shipdate", "l_commitdate", "l_receiptdate", "o_orderdate"}
 TEXT_COLS = {"c_mktsegment", "n_name", "r_name", "p_name", "p_brand",
-             "p_container", "o_comment", "c_phone"}
+             "p_container", "o_comment", "c_phone", "p_type", "s_comment",
+             "o_orderpriority"}
 SEEDS = (13, 17)
 
 
@@ -31,6 +35,7 @@ def _day_sql(col):
 def store_db(request):
     store = datagen.generate(sf=0.01, seed=request.param)
     db = sqlite3.connect(":memory:")
+    db.execute("PRAGMA case_sensitive_like = ON")  # as the engine's LIKE
     tables = {}
     for (tab, col), data in store.columns.items():
         if not tab.startswith("%") and not col.startswith("%"):
@@ -180,3 +185,82 @@ def test_substr_groupby_oracle_matches_sqlite(store_db):
         FROM customer GROUP BY 1
     """))
     assert len(got) > 1 and got == want
+
+
+def _port_run(store, plan):
+    res = lower.compile_plan_text(plan, store.make_catalog(), store,
+                                  device="cpu")()
+    return [np.asarray(c, np.int64) for c in res.columns]
+
+
+def _in_order(got, want):
+    return len(got) == len(want) and all(
+        np.array_equal(np.asarray(g, np.int64), np.asarray(w, np.int64))
+        for g, w in zip(got, want))
+
+
+def test_q4_oracle_matches_sqlite_and_port(store_db):
+    store, db = store_db
+    prio, count = chip_smoke.oracle_q4(store)
+    got = sorted(zip(_decode(store, "orders", "o_orderpriority", prio),
+                     np.asarray(count, np.int64).tolist()))
+    want = sorted(tuple(r) for r in db.execute("""
+        SELECT o_orderpriority, COUNT(*) FROM orders
+        WHERE o_orderdate >= '1993-07-01' AND o_orderdate < '1993-10-01'
+          AND EXISTS (SELECT * FROM lineitem WHERE l_orderkey = o_orderkey
+                      AND l_commitdate < l_receiptdate)
+        GROUP BY o_orderpriority
+    """))
+    assert len(got) > 1 and got == want
+    assert _in_order(_port_run(store, chip_smoke.PLAN_Q4), [prio, count])
+
+
+def test_q3_top10_oracle_matches_sqlite_and_port(store_db):
+    """Tie-tolerant: the (revenue, o_orderdate) keys of the ten rows, in
+    order; rows tied at the cut may differ."""
+    store, db = store_db
+    cols = chip_smoke.oracle_q3_top10(store)
+    keys = list(zip(np.asarray(cols[1], np.int64).tolist(),
+                    np.asarray(cols[2], np.int64).tolist()))
+    want = db.execute(f"""
+        SELECT l_orderkey, SUM(l_extendedprice * (100 - l_discount)) AS rev,
+               {_day_sql("o_orderdate")} AS odate, o_shippriority
+        FROM customer, orders, lineitem
+        WHERE c_mktsegment = 'BUILDING'
+          AND c_custkey = o_custkey AND l_orderkey = o_orderkey
+          AND o_orderdate < '1995-03-15' AND l_shipdate > '1995-03-15'
+        GROUP BY l_orderkey, o_orderdate, o_shippriority
+        ORDER BY rev DESC, odate LIMIT 10
+    """).fetchall()
+    assert len(keys) == 10 and keys == [(r[1], r[2]) for r in want]
+    port = _port_run(store, chip_smoke.PLAN_Q3_TOP10)
+    assert list(zip(port[1].tolist(), port[2].tolist())) == keys
+    # every oracle row is a row of Q3
+    assert set(zip(*[np.asarray(c, np.int64).tolist() for c in cols])) <= \
+        set(zip(*[np.asarray(c, np.int64).tolist()
+                  for c in chip_smoke.oracle_q3(store)]))
+
+
+def test_q16_oracle_matches_sqlite_and_port(store_db):
+    store, db = store_db
+    brand, ptype, size, cnt = chip_smoke.oracle_q16(store)
+    got = sorted(zip(_decode(store, "part", "p_brand", brand),
+                     _decode(store, "part", "p_type", ptype),
+                     np.asarray(size, np.int64).tolist(),
+                     np.asarray(cnt, np.int64).tolist()))
+    want = sorted(tuple(r) for r in db.execute("""
+        SELECT p_brand, p_type, p_size, COUNT(DISTINCT ps_suppkey)
+        FROM partsupp, part
+        WHERE p_partkey = ps_partkey AND p_brand <> 'Brand#45'
+          AND p_type NOT LIKE 'MEDIUM POLISHED%'
+          AND p_size IN (49, 14, 23, 45, 19, 3, 36, 9)
+          AND ps_suppkey NOT IN (SELECT s_suppkey FROM supplier
+                                 WHERE s_comment LIKE '%Customer%Complaints%')
+        GROUP BY p_brand, p_type, p_size
+    """))
+    assert len(got) > 100 and got == want
+    assert _in_order(_port_run(store, chip_smoke.PLAN_Q16),
+                     [brand, ptype, size, cnt])
+    # the order: supplier count descending, then the codes ascending
+    order = np.lexsort((size, ptype, brand, -np.asarray(cnt, np.int64)))
+    assert np.array_equal(order, np.arange(len(order)))
