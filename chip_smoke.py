@@ -51,7 +51,19 @@ Phases (any failure ends the run with a nonzero exit; nothing is caught):
      at its default sizes and the lineitem row count rounded up to a
      block, with the launch counters of the two probe kernels read around
      them; then an empty kernel's launch through the probes' ctypes path
-     is timed, which bounds the launch-bound probes.
+     is timed, which bounds the launch-bound probes;
+  6. the command line, each command in its own process: ``genplans`` of
+     the thirteen in-code plans (``CLI_PLANS``) against metadata files of
+     the store (``write_metadata``) must compile all of them, and
+     ``compile``, ``compile --dot`` and ``explain`` of each must print a
+     program (no device); ``run`` of Q5 on the card at the chosen scale,
+     with ``--roofline --hbm-gbps 3350`` and ``--profile``, must be
+     row-exact, report scan bytes and an amplification of at least 1, and
+     leave a trace that names the ``m2v_compact``, ``m2v_gather``,
+     ``m2v_scatter`` and ``m2v_small_gather`` launches and their kernels;
+     ``run --tbl --decode`` of Q1 and Q16 over .tbl files written from a
+     TBL_SF store must give ``run --decode``'s rows of the generated store
+     (Q16 in its ORDER BY over the strings).
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits nonzero and prints no result.  The plan texts and the
@@ -363,6 +375,23 @@ Q17_COLUMNS = ["sum_price"]
 SUBSTR_COLUMNS = ["cntrycode", "numcust", "totacctbal"]
 Q4_COLUMNS = ["o_orderpriority", "order_count"]
 Q16_COLUMNS = ["p_brand", "p_type", "p_size", "supplier_cnt"]
+# every in-code plan under its file name for the command line (phase 6):
+# Q1's three runs and the Q3 runs differ only by switches and by the ORDER
+# BY ... LIMIT
+CLI_PLANS = {"q6": PLAN_Q6, "q1": PLAN_Q1,
+             "filter_project": PLAN_FILTER_PROJECT, "q3": PLAN_Q3,
+             "q5": PLAN_Q5, "sparse_groupby": PLAN_SPARSE_GROUPBY,
+             "q9": PLAN_Q9, "q13": PLAN_Q13, "q17": PLAN_Q17,
+             "substr_groupby": PLAN_SUBSTR_GROUPBY, "q4": PLAN_Q4,
+             "q3_top10": PLAN_Q3_TOP10, "q16": PLAN_Q16}
+# the C entry points of Q5's kernel launches, which its profiler trace must
+# name beside their kernels
+Q5_ENTRIES = {"m2v_compact": "compact", "m2v_gather": "gather",
+              "m2v_scatter": "scatter", "m2v_small_gather": "small_gather"}
+# the scale of the --tbl runs: the ingest parses text in Python loops, and
+# SF10's .tbl text is about 10 GB
+TBL_SF = 0.1
+REPO = os.path.dirname(os.path.abspath(__file__))
 # the query runs of the general-join slice, and the engine kernels they
 # must launch between them
 JOIN_RUNS = ("Q9", "Q13", "Q17", "substring group-by")
@@ -748,6 +777,86 @@ def same_rows(got, want) -> bool:
         return False
     go, wo = np.lexsort(got[::-1]), np.lexsort(want[::-1])
     return all(np.array_equal(g[go], w[wo]) for g, w in zip(got, want))
+
+
+def write_metadata(store, directory: str) -> None:
+    """Writes the four metadata files that ``compile``, ``explain`` and
+    ``genplans`` read, for ``store``: ``bounds.csv``, ``storage.csv`` and
+    ``dictionary.csv`` hold the rows ``ColumnStore.make_catalog`` builds
+    from the data, and ``schema.msqldump`` is DDL that
+    ``fe.schema_parser.from_file`` reads back as the store's tables.  Test
+    support for the command line; the engine builds its catalog from the
+    store itself."""
+    import csv
+
+    from mplan2vdl_tpu_torch.engine import nativeio
+    from mplan2vdl_tpu_torch.names import concat_name
+
+    declared = {concat_name(t.name, cn): ts for t in store.tables
+                for cn, ts in t.columns}
+    bounds, storage = [], []
+    for (tab, col), data in store.columns.items():
+        mn, mx, tz, n = nativeio.column_stats(data)
+        bounds.append((tab, col, mn, mx, n, tz))
+        ts = declared.get((tab, col))
+        typ = "oid" if ts is None else ts.tname.lower()
+        storage.append(("sys", tab, col, typ, "", n, 8, 8 * n, 0, 0, 0,
+                        "false"))
+    # the primary keys' row-id pseudo-columns
+    for t in store.tables:
+        tab, pk = t.name[0], t.pkey.constraint[0]
+        n = store.table_count(t.name)
+        bounds.append((tab, pk, 0, max(n - 1, 0), n, 0))
+        storage.append(("sys", tab, pk, "oid", "", n, 8, 8 * n, 0, 0, 0,
+                        "false"))
+    dictrows = [(tab, col, s, code)
+                for (tab, col), dec in store.decoders.items()
+                for code, s in dec.items()]
+    os.makedirs(directory, exist_ok=True)
+    for name, rows in (("bounds.csv", bounds), ("storage.csv", storage),
+                       ("dictionary.csv", dictrows)):
+        with open(os.path.join(directory, name), "w", newline="") as f:
+            csv.writer(f).writerows(rows)
+
+    def q(name):
+        return ".".join(f'"{part}"' for part in name)
+
+    def cols(names):
+        return ", ".join(q(c) for c in names)
+
+    ddl = ['SET SCHEMA "sys";']
+    for t in store.tables:
+        body = []
+        for cn, ts in t.columns:
+            params = (f"({', '.join(str(x) for x in ts.tparams)})"
+                      if ts.tparams else "")
+            body.append(f"\t{q(cn)} {ts.tname}{params} NOT NULL")
+        body.append(f"\tCONSTRAINT {q(t.pkey.constraint)} PRIMARY KEY "
+                    f"({cols(t.pkey.cols)})")
+        for fk in t.fkeys:
+            body.append(
+                f"\tCONSTRAINT {q(fk.constraint)} FOREIGN KEY "
+                f"({cols(a for a, _ in fk.colmap)}) REFERENCES "
+                f'"sys".{q(fk.references)} ({cols(b for _, b in fk.colmap)})')
+        ddl.append(f'CREATE TABLE "sys".{q(t.name)} (\n'
+                   + ",\n".join(body) + "\n);")
+    with open(os.path.join(directory, "schema.msqldump"), "w") as f:
+        f.write("\n".join(ddl) + "\n")
+
+
+def csv_rows(text: str):
+    """The header and the rows (lists of strings) of ``run``'s CSV."""
+    lines = text.rstrip("\n").split("\n")
+    return lines[0].split(","), [ln.split(",") for ln in lines[1:]]
+
+
+def q16_sql_order(rows) -> bool:
+    """Whether decoded Q16 rows (brand, type, size, count) follow its ORDER
+    BY supplier_cnt DESC, p_brand, p_type, p_size over the strings: the
+    order of a store whose codes ascend with their strings (``from_tbl``'s
+    sorted dictionaries)."""
+    keys = [(-int(c), b, t, int(sz)) for b, t, sz, c in rows]
+    return keys == sorted(keys)
 
 
 def _sh(cmd):
@@ -1800,12 +1909,160 @@ class Smoke:
                          tot["plain_ms"], None,
                          max(tot["bound_ms"], per_pass * noop_ms), per_pass)
 
+    def cli(self, argv, timeout):
+        """``python -m mplan2vdl_tpu_torch ARGV`` from the repo's root, run
+        to its end; the finished process, with its wall ``seconds``.  Fails
+        with the end of its stderr when it exits nonzero."""
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "mplan2vdl_tpu_torch",
+                            *argv], cwd=REPO, capture_output=True,
+                           text=True, timeout=timeout)
+        p.seconds = time.perf_counter() - t0
+        if p.returncode != 0:
+            raise AssertionError(f"{' '.join(argv[:2])} exited "
+                                 f"{p.returncode}: {p.stderr[-3000:]}")
+        return p
+
+    def cli_phase(self):
+        """Phase 6: the command line, each command in its own process.
+        ``genplans``, ``compile``, ``compile --dot`` and ``explain`` of every
+        in-code plan against metadata files of the store (no device); Q5
+        through ``run`` on the card with ``--roofline`` and ``--profile``,
+        row-exact, its trace naming its four kernels' launches; Q1 and Q16
+        through ``run --tbl`` of .tbl files written from a TBL_SF store,
+        equal to ``run`` of the generated store as decoded rows."""
+        import re
+        import tempfile
+        from concurrent.futures import ThreadPoolExecutor
+
+        import numpy as np
+
+        from mplan2vdl_tpu_torch.engine import datagen, tblingest
+
+        t_phase = time.perf_counter()
+        self.torch.cuda.empty_cache()  # the children share the card
+        seed = str(self.args.seed)
+        with tempfile.TemporaryDirectory(prefix="m2v_cli_") as tmp:
+            meta, plans = os.path.join(tmp, "meta"), os.path.join(tmp, "plans")
+            write_metadata(self.st, meta)
+            os.makedirs(plans)
+            path = {}
+            for name, text in CLI_PLANS.items():
+                path[name] = os.path.join(plans, f"{name}.mplan")
+                with open(path[name], "w") as f:
+                    f.write(text)
+            out = self.cli(["genplans", meta, plans], 600).stdout
+            total = f"SUCCESS/TOTAL: {len(CLI_PLANS)}/{len(CLI_PLANS)}"
+            print(json.dumps({"genplans": out.strip().splitlines()[-1]}),
+                  flush=True)
+            if total not in out:
+                raise AssertionError(f"genplans: {out}")
+            flags = ["-b", os.path.join(meta, "bounds.csv"),
+                     "-t", os.path.join(meta, "storage.csv"),
+                     "-s", os.path.join(meta, "schema.msqldump"),
+                     "--dictionary", os.path.join(meta, "dictionary.csv")]
+            kinds = {"vdl": ["compile"], "dot": ["compile", "--dot"],
+                     "explain": ["explain"]}
+            with ThreadPoolExecutor(8) as pool:
+                futs = {(name, kind): pool.submit(
+                    self.cli, [cmd[0], path[name], *flags, *cmd[1:]], 600)
+                    for name in CLI_PLANS for kind, cmd in kinds.items()}
+                done = {k: f.result().stdout for k, f in futs.items()}
+            for name in CLI_PLANS:
+                vdl = done[(name, "vdl")].strip().splitlines()
+                if ("MaterializeCompact" not in vdl[-1]
+                        or not done[(name, "dot")].startswith("digraph")
+                        or "-- output 0:" not in done[(name, "explain")]):
+                    raise AssertionError(f"{name}: compile, --dot or "
+                                         "explain printed no program")
+                print(json.dumps({
+                    "cli_compile": name, "statements": len(vdl),
+                    "dot_lines": done[(name, "dot")].count("\n"),
+                    "explain_lines": done[(name, "explain")].count("\n")}),
+                    flush=True)
+
+            # Q5 on the card, with the roofline and a profile of the call
+            prof = os.path.join(tmp, "q5_profile")
+            p = self.cli(["run", path["q5"], "--sf", f"{self.args.sf:g}",
+                          "--seed", seed, "--roofline", "--hbm-gbps",
+                          f"{HBM_BYTES_PER_S / 1e9:g}", "--profile", prof],
+                         900)
+            head, rows = csv_rows(p.stdout)
+            got = [np.array([int(r[i]) for r in rows], np.int64)
+                   for i in range(len(head))]
+            if head != Q5_COLUMNS or not same_rows(got, oracle_q5(self.st)):
+                raise AssertionError("run Q5: rows differ from the oracle")
+            roof = dict(re.findall(r"^# (\w+): (\S+)$", p.stderr, re.M))
+            scan, amp = int(roof["scan_bytes"]), float(roof["amplification"])
+            if not (scan > 0 and amp >= 1):
+                raise AssertionError(f"run Q5 --roofline: {roof}")
+            with open(os.path.join(prof, "trace.json")) as f:
+                trace = f.read()
+            missing = [e for e, k in Q5_ENTRIES.items()
+                       if f'"{e}"' not in trace or not any(
+                           fn in trace for fn in KERNEL_FUNCTIONS[k])]
+            if missing:
+                raise AssertionError(f"run Q5 --profile: the trace lacks "
+                                     f"{missing} or their kernels")
+            rec = {"query": "Q5", "sf": self.args.sf, "wall_s": p.seconds,
+                   "scan_bytes": scan,
+                   "bytes_accessed": int(roof["bytes_accessed"]),
+                   "amplification": amp,
+                   "roofline_floor_s": float(roof["roofline_floor_s"]),
+                   "traffic_time_s": float(roof["traffic_time_s"]),
+                   "card": self.smi}
+            self.records["cli_run"] = rec
+            print(json.dumps({"cli_run": rec}), flush=True)
+
+            # --tbl: Q1 and Q16 of an ingested store against the generated
+            # one (decoded: the ingest's dictionary codes follow the sorted
+            # strings, the generator's do not)
+            tbl = os.path.join(tmp, "tbl")
+            t0 = time.perf_counter()
+            tblingest.to_tbl(datagen.generate(sf=TBL_SF, seed=self.args.seed),
+                             tbl)
+            to_tbl_s = time.perf_counter() - t0
+            with ThreadPoolExecutor(4) as pool:
+                futs = {(name, src): pool.submit(self.cli, [
+                    "run", path[name], *arg, "--decode"], 900)
+                    for name in ("q1", "q16") for src, arg in (
+                        ("tbl", ["--tbl", tbl]),
+                        ("gen", ["--sf", f"{TBL_SF:g}", "--seed", seed]))}
+                runs = {k: f.result() for k, f in futs.items()}
+            for name in ("q1", "q16"):
+                (h, got), (wh, want) = (csv_rows(runs[(name, s)].stdout)
+                                        for s in ("tbl", "gen"))
+                if h != wh or len(got) < 2 or sorted(got) != sorted(want):
+                    raise AssertionError(f"run --tbl {name}: decoded rows "
+                                         "differ from the generated store's")
+                if name == "q16" and not q16_sql_order(got):
+                    raise AssertionError("run --tbl q16: rows out of order")
+                print(json.dumps({
+                    "cli_tbl": name, "sf": TBL_SF, "rows": len(got),
+                    "to_tbl_s": to_tbl_s,
+                    "tbl_run_s": runs[(name, "tbl")].seconds,
+                    "generated_run_s": runs[(name, "gen")].seconds}),
+                    flush=True)
+        self.records["cli_phase_s"] = time.perf_counter() - t_phase
+        print(json.dumps({"cli_phase_s": self.records["cli_phase_s"]}),
+              flush=True)
+
     def profile(self, name, cq):
         """One warm call under torch.profiler: device (kernel) time beside
-        the host wall time, and the ops that own the most device time."""
+        the host wall time, and the ops that own the most device time.
+        The engine kernels' launch counters and launch ranges (``m2v_*``)
+        are read around the same call, and a launch the profiler holds no
+        kernel record of is printed as a ``profile_lost`` line."""
+        import importlib
+
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
+        counters = {k: (importlib.import_module(
+            f"mplan2vdl_tpu_torch.engine.kernels.{mod}"), attr)
+            for k, (mod, attr) in COUNTERS.items()}
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
         act = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
         with profile(activities=act) as prof:
             t0 = time.perf_counter()
@@ -1828,14 +2085,26 @@ class Smoke:
             if k is not None:
                 c, t = kernels.get(k, (0, 0.0))
                 kernels[k] = (c + e.count, t + dev_us(e) / 1e3)
+        launched = {k: getattr(mod, attr)
+                    for k, (mod, attr) in counters.items()
+                    if getattr(mod, attr)}
+        ranges = {e.key: e.count for e in ops if e.key.startswith("m2v_")}
+        lost = {k: n - kernels.get(k, (0, 0.0))[0]
+                for k, n in launched.items()
+                if kernels.get(k, (0, 0.0))[0] < n}
+        if lost:
+            print(json.dumps({"profile_lost": name, "lost": lost,
+                              "launched": launched, "ranges": ranges}),
+                  flush=True)
         os.makedirs(self.args.profile, exist_ok=True)
         stem = "".join(c if c.isalnum() else "_" for c in name)
         with open(os.path.join(self.args.profile, stem + ".txt"), "w") as f:
-            f.write(avg.table(sort_by="self_device_time_total", row_limit=40,
+            f.write(avg.table(sort_by="self_device_time_total", row_limit=-1,
                               max_name_column_width=100))
         return {"wall_ms": wall, "device_ms": device,
                 "busy_share": device / wall,
                 "kernels": {k: list(v) for k, v in kernels.items()},
+                "launched": launched, "ranges": ranges, "lost": lost,
                 "top": [[e.key, e.count, dev_us(e) / 1e3] for e in top]}
 
     def bound_by(self, name):
@@ -1891,6 +2160,7 @@ def main(argv=None) -> int:
     s.kernel_phase()
     s.query_phase()
     s.probe_phase()
+    s.cli_phase()
     summary = s.summary()
     s.records["summary"] = summary
     s.records["wall_s"] = time.perf_counter() - t0

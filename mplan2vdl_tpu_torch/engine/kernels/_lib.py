@@ -142,6 +142,17 @@ def lib() -> ctypes.CDLL:
         return _lib
 
 
+def call(name: str, *args) -> int:
+    """Calls the C entry point ``name`` (a kernel launch) and returns its
+    error code.  While torch.profiler records, the call is a range named
+    ``name``, so a trace names each launch beside its kernel."""
+    fn = getattr(lib(), name)
+    if not torch.autograd._profiler_enabled():
+        return fn(*args)
+    with torch.profiler.record_function(name):
+        return fn(*args)
+
+
 def check(rc: int, what: str) -> None:
     """Raises when a C entry returned a CUDA error (a refused launch never
     runs, and a later synchronize would not report it)."""

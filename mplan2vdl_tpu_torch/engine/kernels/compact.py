@@ -128,8 +128,8 @@ def compact_positions(mask: torch.Tensor,
     if fresh is not None:
         buf = torch.zeros(fresh, dtype=torch.int64, device=mask.device)
     _scratch[key] = (state, buf)
-    rc = lib.m2v_compact(mask.data_ptr(), n, buf.data_ptr(), base, epoch,
-                         out.data_ptr(), n_out, tail, stream)
+    rc = _lib.call("m2v_compact", mask.data_ptr(), n, buf.data_ptr(), base,
+                   epoch, out.data_ptr(), n_out, tail, stream)
     if rc != 0:
         state.forget()
     _lib.check(rc, "compact")

@@ -142,10 +142,10 @@ def fused_group_aggregate(cols: Sequence[torch.Tensor], gid: torch.Tensor,
     gid = ready(gid)
     out = torch.zeros((n_groups, len(specs)), dtype=torch.int64,
                       device=gid.device)
-    lib = _lib.lib()
-    rc = lib.m2v_multiagg(_lib.ptrs(cols), len(cols), gid.data_ptr(), n,
-                          _lib.ints(words), len(words), len(specs), n_groups,
-                          int(lane), out.data_ptr(), _lib.stream(gid))
+    rc = _lib.call("m2v_multiagg", _lib.ptrs(cols), len(cols),
+                   gid.data_ptr(), n, _lib.ints(words), len(words),
+                   len(specs), n_groups, int(lane), out.data_ptr(),
+                   _lib.stream(gid))
     _lib.check(rc, "multiagg")
     launches += 1
     return out

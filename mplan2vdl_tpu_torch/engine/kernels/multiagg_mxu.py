@@ -179,10 +179,10 @@ def fused_group_aggregate_mxu(cols: Sequence[torch.Tensor], gid: torch.Tensor,
     gid = _aligned(gid)
     out = torch.zeros((n_groups, len(specs)), dtype=torch.int64,
                       device=gid.device)
-    lib = _lib.lib()
     if fast_path(n_groups, specs):
         used, fwords, heads = fast_args(specs)
-        rc = lib.m2v_multiagg_mxu_fast(
+        rc = _lib.call(
+            "m2v_multiagg_mxu_fast",
             _lib.ptrs([cols[i] for i in used]), len(used), gid.data_ptr(),
             gid.shape[0], _lib.ints(fwords), len(fwords),
             _lib.ints([x for h in heads for x in h]), len(specs), n_groups,
@@ -190,7 +190,8 @@ def fused_group_aggregate_mxu(cols: Sequence[torch.Tensor], gid: torch.Tensor,
             _lib.stream(gid))
     else:
         words = spec_words(specs)
-        rc = lib.m2v_multiagg_mxu(
+        rc = _lib.call(
+            "m2v_multiagg_mxu",
             _lib.ptrs(cols), len(cols), gid.data_ptr(), gid.shape[0],
             _lib.ints(words), len(words), len(specs),
             _lib.ints(plane_offsets(specs)), n_groups, max_blocks,

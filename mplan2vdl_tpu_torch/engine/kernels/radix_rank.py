@@ -73,8 +73,8 @@ def radix_rank(x: torch.Tensor, nbits: int) -> torch.Tensor:
     out = torch.empty_like(x)
     if x.shape[0] == 0:
         return out
-    rc = _lib.lib().m2v_radix_rank(x.data_ptr(), out.data_ptr(), x.shape[0],
-                                   nbits, _lib.stream(x))
+    rc = _lib.call("m2v_radix_rank", x.data_ptr(), out.data_ptr(),
+                   x.shape[0], nbits, _lib.stream(x))
     _lib.check(rc, "radix_rank")
     launches += 1
     return out

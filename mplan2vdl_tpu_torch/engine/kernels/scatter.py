@@ -68,8 +68,8 @@ def monotone_scatter(pos: torch.Tensor, src: torch.Tensor,
     lib = _lib.lib()
     if lib.m2v_scatter_tile() != TILE:
         raise RuntimeError("scatter.cu's tile differs from scatter.TILE")
-    _lib.check(lib.m2v_scatter(
-        pos.data_ptr(), pos.element_size(), src.data_ptr(),
+    _lib.check(_lib.call(
+        "m2v_scatter", pos.data_ptr(), pos.element_size(), src.data_ptr(),
         src.element_size(), out.data_ptr(), pos.shape[0], L,
         _lib.stream(pos)), "scatter")
     launches += 1

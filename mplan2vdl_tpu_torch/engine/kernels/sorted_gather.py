@@ -114,8 +114,8 @@ def _small_gather(srcs: List[torch.Tensor],
     cap = lib.m2v_small_gather_max_sources()
     for lo in range(0, len(srcs), cap):
         part, part_out = srcs[lo:lo + cap], outs[lo:lo + cap]
-        rc = lib.m2v_small_gather(
-            _lib.ptrs(part), _lib.ptrs(part_out),
+        rc = _lib.call(
+            "m2v_small_gather", _lib.ptrs(part), _lib.ptrs(part_out),
             _lib.ints([s.element_size() for s in part]), len(part),
             pos.data_ptr(), pos.element_size(), m, n, _lib.stream(pos))
         _lib.check(rc, "small_gather")
@@ -157,8 +157,8 @@ def gather_many(srcs: Sequence[torch.Tensor], pos: torch.Tensor,
     cap = lib.m2v_gather_max_sources()
     for lo in range(0, len(srcs), cap):
         part, part_out = srcs[lo:lo + cap], outs[lo:lo + cap]
-        rc = lib.m2v_gather(
-            _lib.ptrs(part), _lib.ptrs(part_out),
+        rc = _lib.call(
+            "m2v_gather", _lib.ptrs(part), _lib.ptrs(part_out),
             _lib.ints([s.element_size() for s in part]), len(part),
             pos.data_ptr(), pos.element_size(), m, n, vhost, vptr,
             _lib.stream(pos))

@@ -73,10 +73,18 @@ _INT_DTYPES = (torch.int32, torch.int64)
 
 
 def dtype_for(info: ColInfo):
+    """A node's physical dtype as numpy names it: int32 when its value
+    bounds fit, int64 otherwise (the JAX engine's ``dtype_for``, whose
+    ``__name__`` ``explain`` prints)."""
     l, u = info.bounds
     if INT32_MIN <= l and u <= INT32_MAX:
-        return torch.int32
-    return torch.int64
+        return np.int32
+    return np.int64
+
+
+def torch_dtype_for(info: ColInfo) -> torch.dtype:
+    """``dtype_for`` as the torch dtype of the node's buffer."""
+    return torch.int32 if dtype_for(info) is np.int32 else torch.int64
 
 
 @dataclass
@@ -319,7 +327,7 @@ class Compiler:
     def _eval(self, v: V.Vexp) -> Val:
         vx = v.vx
         L = v.info.count
-        dt = dtype_for(v.info)
+        dt = torch_dtype_for(v.info)
 
         if isinstance(vx, V.Load):
             arr = self.tables.get(vx.name)
@@ -522,7 +530,8 @@ class Compiler:
             tab = self._lookup_table(vx.ldata, codes, [1] * len(codes))
             self.lookups[v.skey] = tab
         found = self._lookup(tab, dval) != 0
-        out = _mask_tail(found.to(dtype_for(v.info)), dval.valid, dval.length)
+        out = _mask_tail(found.to(torch_dtype_for(v.info)), dval.valid,
+                         dval.length)
         return Val(data=out, valid=dval.valid, length=dval.length)
 
     def _eval_dictmap(self, v: V.Vexp, vx: V.DictMap) -> Val:
@@ -534,8 +543,9 @@ class Compiler:
             tab = self._lookup_table(vx.ldata, [a for a, _ in vx.mapping],
                                      [b for _, b in vx.mapping])
             self.lookups[v.skey] = tab
-        out = _mask_tail(self._lookup(tab, dval).to(dtype_for(v.info)),
-                         dval.valid, dval.length)
+        out = _mask_tail(
+            self._lookup(tab, dval).to(torch_dtype_for(v.info)),
+            dval.valid, dval.length)
         return Val(data=out, valid=dval.valid, length=dval.length)
 
     def _lookup_table(self, ldata: V.Vexp, codes: List[int],
@@ -581,7 +591,8 @@ class Compiler:
         data = torch.where(i < total, data, _i64(0, dev))
         if isinstance(lv.valid, int) and isinstance(rv.valid, int):
             total = lv.valid * rv.valid
-        return Val(data=data.to(dtype_for(v.info)), valid=total, length=L)
+        return Val(data=data.to(torch_dtype_for(v.info)), valid=total,
+                   length=L)
 
     # -------------------------------------------------------------- equijoins
     def _join_artifacts(self, lkeys: V.Vexp, rkeys: V.Vexp) -> dict:
@@ -743,7 +754,7 @@ class Compiler:
         to the host once per key pair."""
         art = self._join_artifacts(vx.lkeys, vx.rkeys)
         dev = self.device
-        dt = dtype_for(v.info)
+        dt = torch_dtype_for(v.info)
         n, side = art["n"], vx.jside
         syncs = art["syncs"]
         if side not in (V.JLEFT, V.JRIGHT):
@@ -794,7 +805,7 @@ class Compiler:
         lv = self._force(self.eval(vx.left))
         rv = self._force(self.eval(vx.right))
         L = min(lv.length, rv.length)
-        dt = dtype_for(v.info)
+        dt = torch_dtype_for(v.info)
         # compute in a width that holds operands and result
         cdt = torch.promote_types(
             torch.promote_types(lv.data.dtype, rv.data.dtype), dt)
@@ -913,7 +924,7 @@ class Compiler:
         fam = self.fold_map.get(v.skey)
         if fam is not None:
             return self._eval_fused(v, fam)
-        dt = dtype_for(v.info)
+        dt = torch_dtype_for(v.info)
         g = self.eval(vx.fgroups)
         domain = vx.fgroups.info.bounds[1] + 1
         dval = self._force(self.eval(vx.fdata))
@@ -1071,7 +1082,7 @@ class Compiler:
             occ = out[:, -1] > 0
             hit = {"out": out, "occ": occ, "ngroups": occ.sum()}
             self.fused_cache[fam_idx] = hit
-        dt = dtype_for(v.info)
+        dt = torch_dtype_for(v.info)
         L_out = min(fam.domain, v.info.count)
         sel = _sel_positions(hit["occ"], L_out)
         vals = hit["out"][sel.long(), agg_idx]
@@ -1081,7 +1092,7 @@ class Compiler:
     # ------------------------------------------------------------ partitions
     def _eval_partition(self, v: V.Vexp, vx: V.Partition) -> Val:
         dval = self._force(self.eval(vx.pdata))
-        dt = dtype_for(v.info)
+        dt = torch_dtype_for(v.info)
         piv = vx.pivots.vx
         if isinstance(piv, V.RangeC) and piv.rstep == 1:
             out = torch.clamp(dval.data.to(torch.int64) - piv.rmin, 0,
@@ -1193,6 +1204,52 @@ def fused_agg_on(store: ColumnStore, loads) -> bool:
     return fused != "0"
 
 
+def _nbytes(val: Val) -> int:
+    """Bytes of a runtime vector's buffer (none for a lazy range)."""
+    d = val.data
+    return 0 if d is None else d.numel() * d.element_size()
+
+
+def _node_kind(vx: V.Vx) -> str:
+    """A VIR node's kind in traffic tables: its class, with the op of a
+    Shuffle, Fold or Binop."""
+    op = (getattr(vx, "shop", None) or getattr(vx, "foldop", None)
+          or getattr(vx, "binop", None))
+    return f"{type(vx).__name__} {op}" if op else type(vx).__name__
+
+
+def _node_label(v: V.Vexp) -> str:
+    name = f" {name_str(v.name)}" if v.name else ""
+    return f"{_node_kind(v.vx)} #{v.skey}{name}"
+
+
+class TrafficCompiler(Compiler):
+    """A ``Compiler`` that charges each VIR node it evaluates its operand
+    and output buffer bytes, the rule the JAX package's
+    ``engine/hloprof.py`` applies to HLO instructions: after a call,
+    ``charges`` holds (node, bytes, output bytes) in evaluation order.
+    Loads are charged to the nodes that read them, as HLO parameters are.
+    Only ``CompiledQuery.cost_report`` uses it; a normal call evaluates
+    with ``Compiler`` and records nothing."""
+
+    def trace(self, vexps: List[V.Vexp], tables: Dict[Name, torch.Tensor]
+              ) -> List[Val]:
+        self.charges: List[Tuple[V.Vexp, int, int]] = []
+        return super().trace(vexps, tables)
+
+    def eval(self, v: V.Vexp) -> Val:
+        hit = self.memo.get(v.skey)
+        if hit is not None:
+            return hit
+        out = super().eval(v)
+        if not isinstance(v.vx, V.Load):
+            ob = _nbytes(out)
+            ib = sum(_nbytes(self.memo[c.skey]) for c in _children(v.vx)
+                     if c.skey in self.memo)
+            self.charges.append((v, ib + ob, ob))
+        return out
+
+
 class CompiledQuery:
     """One query bound to one store and one device.  The loaded columns go
     to the device once, on the first call; each call evaluates the DAG
@@ -1232,10 +1289,52 @@ class CompiledQuery:
 
     def run(self) -> List[Val]:
         """Evaluate the DAG; results stay on the device."""
-        c = Compiler(self.store, self.device, self.fold_map, self.families,
-                     self.gather_mates, self.dense_sibs, self.lookups)
+        return self._run(Compiler)[0]
+
+    def _run(self, cls) -> Tuple[List[Val], Compiler]:
+        c = cls(self.store, self.device, self.fold_map, self.families,
+                self.gather_mates, self.dense_sibs, self.lookups)
         out = c.trace(self.vexps, dict(zip(self.loads, self.device_args())))
         self.join_log, self.host_syncs = c.join_log, c.host_syncs
+        return out, c
+
+    def cost_report(self, hbm_gbps: Optional[float] = None,
+                    per_op: bool = False) -> dict:
+        """Memory-roofline accounting of one call (the JAX engine's
+        ``cost_report``).
+
+        ``scan_bytes`` is one read of every loaded column (the bytes of
+        ``device_args()``), the least traffic a call can make.
+        ``bytes_accessed`` comes from one extra evaluation by
+        ``TrafficCompiler``, which charges each evaluated VIR node its
+        operand and output buffer bytes; ``amplification`` is their ratio.
+        It is an estimate, as the JAX engine's is: a kernel may read an
+        operand more than once, or not all of it.  There is no program to
+        count operations in, so ``flops`` is None.  With the device's
+        memory rate ``hbm_gbps`` (GB/s; no default), ``roofline_floor_s``
+        is the scan at that rate and ``traffic_time_s`` the estimated
+        traffic.  With ``per_op``, ``per_op`` holds ``by_kind`` (bytes per
+        VIR node kind, largest first) and ``top_nodes`` (label, bytes and
+        output bytes of the costliest nodes)."""
+        scan = sum(a.numel() * a.element_size() for a in self.device_args())
+        charges = self._run(TrafficCompiler)[1].charges
+        total = sum(b for _, b, _ in charges)
+        out = {"scan_bytes": scan, "bytes_accessed": total, "flops": None,
+               "amplification": total / scan if total and scan else None}
+        if hbm_gbps:
+            out["roofline_floor_s"] = scan / (hbm_gbps * 1e9)
+            out["traffic_time_s"] = total / (hbm_gbps * 1e9)
+        if per_op:
+            by_kind: Dict[str, int] = {}
+            for v, b, _ in charges:
+                k = _node_kind(v.vx)
+                by_kind[k] = by_kind.get(k, 0) + b
+            top = sorted(charges, key=lambda r: -r[1])[:12]
+            out["per_op"] = {
+                "total_bytes": total,
+                "by_kind": dict(sorted(by_kind.items(),
+                                       key=lambda kv: -kv[1])),
+                "top_nodes": [(_node_label(v), b, ob) for v, b, ob in top]}
         return out
 
     def __call__(self) -> QueryResult:

@@ -25,7 +25,8 @@ COPIED = ["names.py", "mtypes.py", "fe/__init__.py", "fe/lexer.py",
           "fe/plan_parser.py", "fe/schema_parser.py", "catalog.py",
           "mplan.py", "vir.py", "passes.py", "engine/columnstore.py",
           "engine/datagen.py", "engine/nativeio.py", "oracle/__init__.py",
-          "oracle/tpch.py", "engine/fuse.py"]
+          "oracle/tpch.py", "engine/fuse.py", "fe/tree_parser.py", "dot.py",
+          "vdl_emit.py", "explain.py", "engine/tblingest.py"]
 # top-level definitions the port leaves out of a copy, with the reason
 OMITTED = {
     # it caches stores under a fixed directory in the user's home; the
@@ -64,7 +65,8 @@ def test_import_pulls_in_no_jax():
     assert "mplan2vdl_tpu_torch.engine.lower" in loaded
     for mod in ("engine.kernels.multiagg_mxu", "engine.kernels.radix_rank",
                 "engine.kernels.probes", "tools.probe_radix",
-                "tools.probe_kernels"):
+                "tools.probe_kernels", "cli", "fe.tree_parser", "dot",
+                "vdl_emit", "explain", "engine.tblingest"):
         assert f"mplan2vdl_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _banned(m)] == []
 
@@ -83,6 +85,9 @@ def test_source_scan_finds_no_jax_import():
     for root, _, fs in os.walk(PORT):
         files += [os.path.join(root, f) for f in fs if f.endswith(".py")]
     assert len(files) > 25
+    # the command line and every copied module are among the files scanned
+    for rel in ["cli.py"] + COPIED:
+        assert os.path.join(PORT, rel) in files, rel
     bad = [(f, m) for f in files for m in _imports(f) if _banned(m)]
     assert bad == []
 
