@@ -63,7 +63,19 @@ Phases (any failure ends the run with a nonzero exit; nothing is caught):
      ``m2v_scatter`` and ``m2v_small_gather`` launches and their kernels;
      ``run --tbl --decode`` of Q1 and Q16 over .tbl files written from a
      TBL_SF store must give ``run --decode``'s rows of the generated store
-     (Q16 in its ORDER BY over the strings).
+     (Q16 in its ORDER BY over the strings);
+  7. the distribution primitives (``parallel/``) at world size 1 over
+     NCCL on the card (``multihost.initialize`` on a free localhost port),
+     over the phase-3 store: ``DistQuery`` Q6 and the Q1 group-by against
+     ``oracle/tpch``, ``ShuffleGroupBy`` over ``l_orderkey`` with
+     ``l_shipdate >= 1995-01-01`` (sum/min/max of ``l_quantity``,
+     ``l_shipdate`` and ``l_extendedprice``, and the rows per group)
+     against ``oracle_shuffle_groupby`` (whose first five columns must be
+     ``oracle_sparse_groupby``'s), and ``ShuffleJoin`` of ``l_orderkey``
+     against ``o_orderkey`` (every count 1, every payload the order's row
+     by ``_pk_lookup``); one timed JSON line per cell (median of 5 warm
+     calls, the peak GB, the bucket capacities, the card).  No engine
+     kernel runs there (the counters are read around the phase).
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits nonzero and prints no result.  The plan texts and the
@@ -674,6 +686,59 @@ def oracle_substr_groupby(st):
                          (c("c_acctbal"), np.add)])
 
 
+def oracle_shuffle_groupby(st):
+    """``oracle_sparse_groupby``'s five columns (the same groups, by the
+    same code), then sum, min and max of ``l_extendedprice`` per group."""
+    import numpy as np
+
+    c = lambda n: st.columns[("lineitem", n)]  # noqa: E731
+    m = c("l_shipdate") >= _day(1995, 1, 1)
+    qty, price = c("l_quantity")[m], c("l_extendedprice")[m]
+    return _group([c("l_orderkey")[m]],
+                  [(qty, np.add), (c("l_shipdate")[m], np.minimum),
+                   (qty, np.maximum), (np.ones(len(qty), np.int64), np.add),
+                   (price, np.add), (price, np.minimum),
+                   (price, np.maximum)])
+
+
+# ------------------------------------------ distribution primitives (7)
+# DistQuery's arguments, the single copy tests/torch_dist_cases.py imports:
+# the operator lambdas of tests/test_parallel.py, which run on JAX and
+# torch arrays alike
+DIST_Q6_COLUMNS = ["l_shipdate", "l_discount", "l_quantity",
+                   "l_extendedprice"]
+DIST_Q1_COLUMNS = ["l_shipdate", "l_returnflag", "l_linestatus",
+                   "l_quantity", "l_extendedprice"]
+
+
+def dist_q6_query():
+    """TPC-H Q6 as one group: revenue = sum(l_extendedprice * l_discount)
+    over the shipdate, discount and quantity window."""
+    d94, d95 = _day(1994, 1, 1), _day(1995, 1, 1)
+    return dict(
+        domain=1,
+        mask_fn=lambda c: ((c["l_shipdate"] >= d94)
+                           & (c["l_shipdate"] < d95)
+                           & (c["l_discount"] >= 5) & (c["l_discount"] <= 7)
+                           & (c["l_quantity"] < 2400)),
+        key_fn=lambda c: c["l_shipdate"] * 0,
+        agg_fns={"revenue": lambda c: c["l_extendedprice"]
+                 * c["l_discount"]})
+
+
+def dist_q1_query(cols):
+    """The Q1 group-by over (returnflag, linestatus): sum of quantity and
+    of extendedprice, rows per group (``__count``)."""
+    cutoff = _day(1998, 12, 1) - 90
+    nls = int(cols["l_linestatus"].max()) + 1
+    return dict(
+        domain=int(cols["l_returnflag"].max() + 1) * nls,
+        mask_fn=lambda c: c["l_shipdate"] <= cutoff,
+        key_fn=lambda c: c["l_returnflag"] * nls + c["l_linestatus"],
+        agg_fns={"sum_qty": lambda c: c["l_quantity"],
+                 "sum_base_price": lambda c: c["l_extendedprice"]})
+
+
 # ------------------------------------------------------ scatter cases
 # numpy (id, pos, src, L) cases of the monotone scatter, the single copy
 # tests/test_torch_kernels.py imports
@@ -904,7 +969,7 @@ class Smoke:
         self.args = args
         self.dev = torch.device("cuda")
         self.records = {"kernel_checks": [], "kernel_times": [],
-                        "queries": []}
+                        "queries": [], "dist": []}
 
     # ----------------------------------------------------------- utilities
     def sync(self):
@@ -948,6 +1013,25 @@ class Smoke:
             raise AssertionError(f"{what}: kernel differs from plain "
                                  f"version (max abs err {err})")
         return err
+
+    def oracle(self, fn, *args):
+        """``fn(*args)``, its seconds printed as an ``{"oracle": ...}``
+        line."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(json.dumps({"oracle": fn.__name__,
+                          "s": time.perf_counter() - t0}), flush=True)
+        return out
+
+    def tpch_want(self, name):
+        """``oracle/tpch``'s Q6 or Q1 result over the store, computed once
+        (Q1 takes over a minute at SF10) for phases 4 and 7."""
+        from mplan2vdl_tpu_torch.oracle import tpch
+
+        cache = self.__dict__.setdefault("_tpch_want", {})
+        if name not in cache:
+            cache[name] = self.oracle(getattr(tpch, name), self.st)
+        return cache[name]
 
     # -------------------------------------------------------------- phases
     def card(self):
@@ -1597,8 +1681,7 @@ class Smoke:
                 f"mplan2vdl_tpu_torch.engine.kernels.{mod}"), attr)
             for k, (mod, attr) in COUNTERS.items()}
         st, cfg = self.st, self.cfg
-        want_q6 = tpch.q6(st)
-        want_q1 = tpch.q1(st)
+        want_q6, want_q1 = self.tpch_want("q6"), self.tpch_want("q1")
         ship = st.columns[("lineitem", "l_shipdate")]
         fp_mask = (ship >= tpch.day(1994, 1, 1)) & (ship < tpch.day(1995, 1, 1))
         want_fp = [st.columns[("lineitem", c)][fp_mask] for c in FP_COLUMNS]
@@ -2047,6 +2130,194 @@ class Smoke:
         print(json.dumps({"cli_phase_s": self.records["cli_phase_s"]}),
               flush=True)
 
+    def dist_phase(self, coordinator=None):
+        """Phase 7: the distribution primitives (``parallel/``) at world
+        size 1 over NCCL on this card, over the phase-3 store: DistQuery Q6
+        and the Q1 group-by, ShuffleGroupBy over ``l_orderkey``, and
+        ShuffleJoin of ``l_orderkey`` against ``o_orderkey``, each exact
+        against its oracle, then timed (median of 5 warm calls).  The one
+        rank meets itself at ``coordinator`` (default: a free localhost
+        port)."""
+        import importlib
+        import socket
+
+        import numpy as np
+        import torch.distributed as tdist
+
+        from mplan2vdl_tpu_torch.parallel import dist, multihost
+        from mplan2vdl_tpu_torch.parallel.shuffle_agg import (
+            _SENT, ShuffleGroupBy, shard_shuffle_combine)
+        from mplan2vdl_tpu_torch.parallel.shuffle_join import ShuffleJoin
+
+        torch, st, dev = self.torch, self.st, self.dev
+        counters = {
+            k: (importlib.import_module(
+                f"mplan2vdl_tpu_torch.engine.kernels.{mod}"), attr)
+            for k, (mod, attr) in COUNTERS.items()}
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        t_phase = time.perf_counter()
+        # one rank on this machine: NCCL's bootstrap over the loopback
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        if coordinator is None:
+            with socket.socket() as sock:
+                sock.bind(("localhost", 0))
+                coordinator = f"localhost:{sock.getsockname()[1]}"
+        multihost.initialize(coordinator, 1, 0, device=dev)
+        try:
+            mesh = multihost.data_mesh(device=dev)
+            backend = str(tdist.get_backend(mesh.group))
+
+            def cell(name, call, check, caps, nbytes, step=None):
+                self.sync()
+                t0 = time.perf_counter()
+                res = call()
+                self.sync()
+                cold = (time.perf_counter() - t0) * 1e3
+                check(res)
+                del res
+
+                def median(fn):
+                    times = []
+                    for _ in range(5):
+                        t0 = time.perf_counter()
+                        fn()
+                        self.sync()
+                        times.append((time.perf_counter() - t0) * 1e3)
+                    return statistics.median(times), times
+
+                torch.cuda.reset_peak_memory_stats()
+                med, times = median(call)
+                rec = {"dist": name, "world_size": mesh.size,
+                       "backend": backend, "device": str(mesh.device),
+                       "sf": self.args.sf, "median_ms": med, "ms": times,
+                       "cold_ms": cold, "bound_ms": _bound_ms(nbytes),
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       **caps(), "card": self.smi}
+                if step is not None:  # device work alone, no host gather
+                    rec["step_median_ms"], rec["step_ms"] = median(step)
+                self.records["dist"].append(rec)
+                print(json.dumps(rec), flush=True)
+
+            line = {c: st.columns[("lineitem", c)] for c in set(
+                DIST_Q6_COLUMNS + DIST_Q1_COLUMNS + ["l_orderkey"])}
+            n = len(line["l_orderkey"])
+
+            # -- DistQuery: Q6, and the Q1 group-by
+            def check_q6(res):
+                want = self.tpch_want("q6")
+                assert res["revenue"].tolist() == want["revenue"].tolist(), (
+                    res, want)
+
+            def check_q1(res):
+                nls = int(line["l_linestatus"].max()) + 1
+                got = sorted(zip((res["__group_id"] // nls).tolist(),
+                                 (res["__group_id"] % nls).tolist(),
+                                 res["sum_qty"].tolist(),
+                                 res["sum_base_price"].tolist(),
+                                 res["__count"].tolist()))
+                want = self.tpch_want("q1")
+                exp = sorted(zip(*[np.asarray(want[k]).tolist() for k in (
+                    "l_returnflag", "l_linestatus", "sum_qty",
+                    "sum_base_price", "count_order")]))
+                assert got == exp, (got, exp)
+
+            for name, cols, spec_of, check in (
+                    ("DistQuery Q6", DIST_Q6_COLUMNS,
+                     lambda c: dist_q6_query(), check_q6),
+                    ("DistQuery Q1 group-by", DIST_Q1_COLUMNS, dist_q1_query,
+                     check_q1)):
+                sub = {c: line[c] for c in cols}
+                t0 = time.perf_counter()
+                table = dist.ShardedTable.put(mesh, sub)
+                self.sync()
+                load_ms = (time.perf_counter() - t0) * 1e3
+                q = dist.DistQuery(table=table, **spec_of(sub))
+                cell(name, q, check,
+                     lambda: {"domain": q.domain, "shard_rows":
+                              table.shard_rows, "load_ms": load_ms},
+                     sum(line[c].nbytes for c in cols))
+                del q, table
+
+            # -- ShuffleGroupBy over l_orderkey, l_shipdate >= 1995-01-01
+            want = self.oracle(oracle_shuffle_groupby, st)
+            sparse = self.oracle(oracle_sparse_groupby, st)
+            for g, w in zip(want[:5], sparse, strict=True):
+                assert np.array_equal(g, w), "oracles disagree"
+
+            def i64(a):
+                return torch.from_numpy(np.asarray(a, np.int64)).to(dev)
+
+            ship = self.col("l_shipdate")
+            live = ship >= _day(1995, 1, 1)
+            keys = torch.where(live, i64(line["l_orderkey"]), _SENT)
+            qty, price = i64(line["l_quantity"]), self.col("l_extendedprice")
+            price = price.to(torch.int64)
+            vals = [qty, ship.to(torch.int64), qty,
+                    torch.ones(n, dtype=torch.int64, device=dev),
+                    price, price, price]
+            ops = ["sum", "min", "max", "sum", "sum", "min", "max"]
+            key_hi = int(line["l_orderkey"].max()) + 1
+            gb = ShuffleGroupBy(mesh=mesh, shard_rows=n, key_hi=key_hi,
+                                ops=ops)
+
+            def check_gb(res):
+                gk, gv = res
+                got = [gk] + gv
+                assert len(got) == len(want)
+                for i, (g, w) in enumerate(zip(got, want)):
+                    assert np.array_equal(np.asarray(g, np.int64),
+                                          np.asarray(w, np.int64)), \
+                        f"ShuffleGroupBy column {i} differs"
+
+            cell("ShuffleGroupBy", lambda: gb(keys, vals), check_gb,
+                 lambda: {"cap": gb.cap, "groups": len(want[0]),
+                          "shard_rows": n},
+                 (1 + len(vals)) * n * 8 + len(want[0]) * 8 * len(want),
+                 step=lambda: shard_shuffle_combine(
+                     keys, vals, ops, n, mesh.size, gb.per_owner, gb.cap,
+                     mesh))
+            del keys, vals, qty, price, ship, live
+
+            # -- ShuffleJoin: every lineitem row against the orders keys
+            okey = st.columns[("orders", "o_orderkey")]
+            row, found = self.oracle(_pk_lookup, okey, line["l_orderkey"])
+            assert found.all()
+            lk = self.col("l_orderkey")
+            rk = torch.from_numpy(np.ascontiguousarray(okey)).to(dev)
+            rpos = torch.arange(len(okey), dtype=torch.int64, device=dev)
+            sj = ShuffleJoin(mesh=mesh, shard_rows_l=n,
+                             shard_rows_r=len(okey),
+                             key_bounds=(0, int(okey.max()) + 1))
+
+            def check_join(res):
+                lidx, ok, cnt, (pay,) = res
+                assert (cnt == 1).all(), "a lineitem row without one match"
+                li, pj = lidx[ok], pay[ok]
+                assert len(li) == n and (np.bincount(li, minlength=n)
+                                         == 1).all(), "pairs differ"
+                by_row = np.empty(n, np.int64)
+                by_row[li] = pj
+                assert np.array_equal(by_row, row), "payloads differ"
+
+            cell("ShuffleJoin", lambda: sj(lk, rk, [rpos]), check_join,
+                 lambda: {"caps": list(sj._caps),
+                          "cap_scale": sj.cap_scale,
+                          "heavy_keys": (len(sj._heavy_plan[0])
+                                         if sj._heavy_plan else 0),
+                          "probe_rows": n, "build_rows": len(okey)},
+                 lk.numel() * 4 + rk.numel() * 4 + rpos.numel() * 8
+                 + n * (8 + 8 + 1 + 8),
+                 step=lambda: sj._build()(lk, rk, [rpos]))
+            del lk, rk, rpos, sj
+        finally:
+            tdist.destroy_process_group()
+        launches = {k: getattr(mod, attr)
+                    for k, (mod, attr) in counters.items()}
+        self.records["dist_phase_s"] = time.perf_counter() - t_phase
+        print(json.dumps({"dist_phase_s": self.records["dist_phase_s"],
+                          "dist_launches": launches}), flush=True)
+
     def profile(self, name, cq):
         """One warm call under torch.profiler: device (kernel) time beside
         the host wall time, and the ops that own the most device time.
@@ -2161,6 +2432,7 @@ def main(argv=None) -> int:
     s.query_phase()
     s.probe_phase()
     s.cli_phase()
+    s.dist_phase()
     summary = s.summary()
     s.records["summary"] = summary
     s.records["wall_s"] = time.perf_counter() - t0

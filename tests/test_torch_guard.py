@@ -66,7 +66,9 @@ def test_import_pulls_in_no_jax():
     for mod in ("engine.kernels.multiagg_mxu", "engine.kernels.radix_rank",
                 "engine.kernels.probes", "tools.probe_radix",
                 "tools.probe_kernels", "cli", "fe.tree_parser", "dot",
-                "vdl_emit", "explain", "engine.tblingest"):
+                "vdl_emit", "explain", "engine.tblingest",
+                "parallel.multihost", "parallel.dist", "parallel.shuffle_agg",
+                "parallel.shuffle_join"):
         assert f"mplan2vdl_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _banned(m)] == []
 
