@@ -63,7 +63,9 @@ Phases (any failure ends the run with a nonzero exit; nothing is caught):
      ``m2v_scatter`` and ``m2v_small_gather`` launches and their kernels;
      ``run --tbl --decode`` of Q1 and Q16 over .tbl files written from a
      TBL_SF store must give ``run --decode``'s rows of the generated store
-     (Q16 in its ORDER BY over the strings);
+     (Q16 in its ORDER BY over the strings); ``run --devices 2`` without
+     ``--cpu`` on fewer than two cards must exit nonzero with the "only N
+     device(s)" message and print no rows;
   7. the distribution primitives (``parallel/``) at world size 1 over
      NCCL on the card (``multihost.initialize`` on a free localhost port),
      over the phase-3 store: ``DistQuery`` Q6 and the Q1 group-by against
@@ -75,7 +77,19 @@ Phases (any failure ends the run with a nonzero exit; nothing is caught):
      against ``o_orderkey`` (every count 1, every payload the order's row
      by ``_pk_lookup``); one timed JSON line per cell (median of 5 warm
      calls, the peak GB, the bucket capacities, the card).  No engine
-     kernel runs there (the counters are read around the phase).
+     kernel runs there (the counters are read around the phase);
+  8. the plan distributor (``parallel/auto.py``) in the same world: each of
+     the thirteen ``CLI_PLANS`` and a lineitem self-join (``AUTO_PLANS``,
+     the one plan whose join runs as a partitioned shuffle join at SF10)
+     through ``auto.distribute`` (set-up timed: the join's counting
+     rounds), one cold call held row-exact against the plan's oracle, then
+     3 warm calls; one ``{"auto": ...}`` line each with its ``describe()``
+     lines (a partitioned join's capacities among them), the cold and warm
+     times beside the plan's phase-4 median, the
+     peak GB and the engine kernels' launches over its calls
+     (``--profile`` traces one more warm call of each).  The phase must
+     launch the compaction and the gather kernels (the shard-local engine
+     path runs the ported kernels).
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits nonzero and prints no result.  The plan texts and the
@@ -318,6 +332,22 @@ PLAN_Q17 = """project (
 ) [ L4 as L5.sum_price ]
 """
 
+# lineitem joined with its own rows of quantity below 11 on l_orderkey,
+# grouped by l_returnflag: the right side is a fact-frame chain and the
+# domain stays dense, so the plan distributor runs it as a partitioned
+# shuffle join (test_fuzz_dist's self-join plans, at full scale)
+PLAN_SELF_JOIN = """project (
+| group by (
+| | join (
+| | | table(sys.lineitem) [ lineitem.l_orderkey NOT NULL, lineitem.l_quantity NOT NULL, lineitem.l_returnflag NOT NULL ] COUNT,
+| | | select (
+| | | | table(sys.lineitem) [ lineitem.l_orderkey NOT NULL as L1.l_orderkey, lineitem.l_quantity NOT NULL as L1.l_quantity, lineitem.l_extendedprice NOT NULL as L1.l_extendedprice ] COUNT
+| | | ) [ L1.l_quantity NOT NULL < decimal(15,2) "1100" ]
+| | ) [ lineitem.l_orderkey NOT NULL = L1.l_orderkey NOT NULL ]
+| ) [ lineitem.l_returnflag ] [ lineitem.l_returnflag, sys.count() NOT NULL as L2.L2, sys.sum no nil (lineitem.l_quantity NOT NULL) as L3.L3, sys.sum no nil (L1.l_extendedprice NOT NULL) as L4.L4 ]
+) [ lineitem.l_returnflag, L2 as L5.cnt, L3 as L5.sum_lqty, L4 as L5.sum_rprice ]
+"""
+
 # a group-by over substring(c_phone, 1, 2) (Q22's country code) with a count
 # and a sum of c_acctbal: the substring recodes c_phone's dictionary
 PLAN_SUBSTR_GROUPBY = """project (
@@ -396,6 +426,21 @@ CLI_PLANS = {"q6": PLAN_Q6, "q1": PLAN_Q1,
              "q9": PLAN_Q9, "q13": PLAN_Q13, "q17": PLAN_Q17,
              "substr_groupby": PLAN_SUBSTR_GROUPBY, "q4": PLAN_Q4,
              "q3_top10": PLAN_Q3_TOP10, "q16": PLAN_Q16}
+# the plans of phase 8: the in-code plans, and the self-join, whose
+# partitioned shuffle join none of them reaches at SF10 (Q13 and Q17 go
+# sparse there and replicate their right sides)
+AUTO_PLANS = {**CLI_PLANS, "self_join": PLAN_SELF_JOIN}
+SELF_JOIN_COLUMNS = ["l_returnflag", "cnt", "sum_lqty", "sum_rprice"]
+# each of CLI_PLANS under its phase-4 run's name (phase 8 prints that run's
+# single-device median beside its own)
+AUTO_PHASE4 = {"q6": "Q6", "q1": "Q1 fused (auto gate)",
+               "filter_project": "filter-project", "q3": "Q3", "q5": "Q5",
+               "sparse_groupby": "sparse group-by", "q9": "Q9",
+               "q13": "Q13", "q17": "Q17",
+               "substr_groupby": "substring group-by", "q4": "Q4",
+               "q3_top10": "Q3 top 10", "q16": "Q16"}
+# (below the fused gate's rows, phase 4's Q1 run under the gate is unfused)
+AUTO_PHASE4_SMALL = {"q1": "Q1 (auto gate: unfused)"}
 # the C entry points of Q5's kernel launches, which its profiler trace must
 # name beside their kernels
 Q5_ENTRIES = {"m2v_compact": "compact", "m2v_gather": "gather",
@@ -599,6 +644,35 @@ def oracle_q17(st):
     below = qty * 10 < 2 * avg[inv]
     price = c("lineitem", "l_extendedprice")[sel][below].astype(np.int64)
     return [np.asarray([price.sum()], np.int64)]
+
+
+def oracle_self_join(st):
+    """PLAN_SELF_JOIN: per order, the right side's matching rows and their
+    price sum; each left row takes its order's."""
+    import numpy as np
+
+    c = lambda n: st.columns[("lineitem", n)]  # noqa: E731
+    ok, flag = c("l_orderkey"), c("l_returnflag")
+    qty = c("l_quantity").astype(np.int64)
+    keep = qty < 1100
+    dom = int(ok.max()) + 1
+    cnt = np.bincount(ok[keep], minlength=dom)
+    price = np.bincount(ok[keep], c("l_extendedprice")[keep].astype(np.float64),
+                        minlength=dom)
+    # float64 is exact per order (at most 7 rows of < 2^27 each); sum in int64
+    price = price.astype(np.int64)
+    flags = np.unique(flag)
+    out = [[], [], [], []]
+    for f in flags:
+        m = flag == f
+        n = cnt[ok[m]]
+        if n.sum() == 0:
+            continue
+        out[0].append(f)
+        out[1].append(n.sum())
+        out[2].append((qty[m] * n).sum())
+        out[3].append(price[ok[m]].sum())
+    return [np.asarray(o, np.int64) for o in out]
 
 
 def _by_order(cols, spec):
@@ -1665,22 +1739,18 @@ class Smoke:
         self.records["kernel_times"].append(rec)
         print(json.dumps(rec), flush=True)
 
-    def query_phase(self):
-        import importlib
-
+    def plan_checks(self):
+        """``CLI_PLANS`` name -> the check of a result of that plan against
+        its oracle (Q4 and Q16 in order, Q3's top 10 tie-tolerantly),
+        built once for phases 4 and 8; each oracle's seconds are printed
+        as it runs."""
+        if getattr(self, "_checks", None) is not None:
+            return self._checks
         import numpy as np
 
-        from mplan2vdl_tpu_torch.engine import lower
-        from mplan2vdl_tpu_torch.engine.kernels import scatter
-        from mplan2vdl_tpu_torch.engine.lower import CompiledQuery, \
-            fused_agg_on, plan_to_vexps
         from mplan2vdl_tpu_torch.oracle import tpch
 
-        counters = {
-            k: (importlib.import_module(
-                f"mplan2vdl_tpu_torch.engine.kernels.{mod}"), attr)
-            for k, (mod, attr) in COUNTERS.items()}
-        st, cfg = self.st, self.cfg
+        st = self.st
         want_q6, want_q1 = self.tpch_want("q6"), self.tpch_want("q1")
         ship = st.columns[("lineitem", "l_shipdate")]
         fp_mask = (ship >= tpch.day(1994, 1, 1)) & (ship < tpch.day(1995, 1, 1))
@@ -1703,20 +1773,17 @@ class Smoke:
             for g, w in zip(res.columns, want_fp, strict=True):
                 assert np.array_equal(g, w), "filter-project rows differ"
 
-        def oracle_rows(oracle):
-            t0 = time.perf_counter()
-            want = oracle(st)
-            print(json.dumps({"oracle": oracle.__name__,
-                              "s": time.perf_counter() - t0}), flush=True)
-            return want
+        def check_rows(columns, oracle):
+            want = self.oracle(oracle, st)
 
-        def check_rows(columns, want):
             def check(res):
                 assert [nm[-1] for nm in res.names] == columns, res.names
                 assert same_rows(res.columns, want), "rows differ"
             return check
 
-        def check_in_order(columns, want):
+        def check_in_order(columns, oracle):
+            want = self.oracle(oracle, st)
+
             def check(res):
                 assert [nm[-1] for nm in res.names] == columns, res.names
                 assert len(res.columns) == len(want)
@@ -1725,6 +1792,13 @@ class Smoke:
                                           np.asarray(w, np.int64)), \
                         "rows differ or are out of order"
             return check
+
+        want_q3 = self.oracle(oracle_q3, st)
+        want_top10 = q3_top10(want_q3)
+
+        def check_q3(res):
+            assert [nm[-1] for nm in res.names] == Q3_COLUMNS, res.names
+            assert same_rows(res.columns, want_q3), "rows differ"
 
         def check_top10(res):
             # tie-tolerant: sorted by revenue descending, then o_orderdate,
@@ -1739,55 +1813,71 @@ class Smoke:
                 np.asarray(want_top10[2], np.int64).tolist())), \
                 "order keys differ"
 
-        want_q3 = oracle_rows(oracle_q3)
-        want_top10 = q3_top10(want_q3)
+        self._checks = {
+            "q6": check_q6, "q1": check_q1, "filter_project": check_fp,
+            "q3": check_q3, "q5": check_rows(Q5_COLUMNS, oracle_q5),
+            "sparse_groupby": check_rows(SPARSE_COLUMNS,
+                                         oracle_sparse_groupby),
+            "q9": check_rows(Q9_COLUMNS, oracle_q9),
+            "q13": check_rows(Q13_COLUMNS, oracle_q13),
+            "q17": check_rows(Q17_COLUMNS, oracle_q17),
+            "substr_groupby": check_rows(SUBSTR_COLUMNS,
+                                         oracle_substr_groupby),
+            "q4": check_in_order(Q4_COLUMNS, oracle_q4),
+            "q3_top10": check_top10,
+            "q16": check_in_order(Q16_COLUMNS, oracle_q16),
+            "self_join": check_rows(SELF_JOIN_COLUMNS, oracle_self_join)}
+        return self._checks
+
+    def query_phase(self):
+        import importlib
+
+        from mplan2vdl_tpu_torch.engine import lower
+        from mplan2vdl_tpu_torch.engine.kernels import scatter
+        from mplan2vdl_tpu_torch.engine.lower import CompiledQuery, \
+            fused_agg_on, plan_to_vexps
+
+        counters = {
+            k: (importlib.import_module(
+                f"mplan2vdl_tpu_torch.engine.kernels.{mod}"), attr)
+            for k, (mod, attr) in COUNTERS.items()}
+        st, cfg = self.st, self.cfg
+        chk = self.plan_checks()
 
         q1_auto = "Q1 fused (auto gate)" if fused_agg_on(
             st, [("lineitem", "l_quantity")]) else "Q1 (auto gate: unfused)"
         # (name, plan, MPLAN2VDL_FUSED_AGG, check, kernels it must launch);
         # MPLAN2VDL_MXU_AGG is set for the Q1_MXU run only
-        runs = [("Q6", PLAN_Q6, None, check_q6, ("compact",)),
-                (q1_auto, PLAN_Q1, None, check_q1,
+        runs = [("Q6", PLAN_Q6, None, chk["q6"], ("compact",)),
+                (q1_auto, PLAN_Q1, None, chk["q1"],
                  ("compact", "multiagg") if q1_auto.startswith("Q1 fused")
                  else ("compact",))]
         if not q1_auto.startswith("Q1 fused"):
-            runs.append(("Q1 fused (forced)", PLAN_Q1, "1", check_q1,
+            runs.append(("Q1 fused (forced)", PLAN_Q1, "1", chk["q1"],
                          ("compact", "multiagg")))
-        runs += [(Q1_MXU, PLAN_Q1, "1", check_q1,
+        runs += [(Q1_MXU, PLAN_Q1, "1", chk["q1"],
                   ("compact", "multiagg_mxu", "multiagg")),
                  ("Q1 unfused (MPLAN2VDL_FUSED_AGG=0)", PLAN_Q1, "0",
-                  check_q1, ("compact",)),
-                 ("filter-project", PLAN_FILTER_PROJECT, None, check_fp, ()),
-                 ("Q3", PLAN_Q3, None, check_rows(Q3_COLUMNS, want_q3),
+                  chk["q1"], ("compact",)),
+                 ("filter-project", PLAN_FILTER_PROJECT, None,
+                  chk["filter_project"], ()),
+                 ("Q3", PLAN_Q3, None, chk["q3"],
                   ("compact", "gather", "scatter")),
-                 ("Q5", PLAN_Q5, None,
-                  check_rows(Q5_COLUMNS, oracle_rows(oracle_q5)),
+                 ("Q5", PLAN_Q5, None, chk["q5"],
                   ("compact", "gather", "scatter", "small_gather")),
                  ("sparse group-by", PLAN_SPARSE_GROUPBY, None,
-                  check_rows(SPARSE_COLUMNS,
-                             oracle_rows(oracle_sparse_groupby)),
-                  ("compact", "gather")),
-                 ("Q9", PLAN_Q9, None,
-                  check_rows(Q9_COLUMNS, oracle_rows(oracle_q9)),
+                  chk["sparse_groupby"], ("compact", "gather")),
+                 ("Q9", PLAN_Q9, None, chk["q9"],
                   ("compact", "gather", "small_gather", "scatter")),
-                 ("Q13", PLAN_Q13, None,
-                  check_rows(Q13_COLUMNS, oracle_rows(oracle_q13)),
+                 ("Q13", PLAN_Q13, None, chk["q13"],
                   ("compact", "gather", "small_gather")),
-                 ("Q17", PLAN_Q17, None,
-                  check_rows(Q17_COLUMNS, oracle_rows(oracle_q17)),
-                  ("compact", "gather")),
+                 ("Q17", PLAN_Q17, None, chk["q17"], ("compact", "gather")),
                  ("substring group-by", PLAN_SUBSTR_GROUPBY, None,
-                  check_rows(SUBSTR_COLUMNS,
-                             oracle_rows(oracle_substr_groupby)),
-                  ("compact", "small_gather")),
-                 ("Q4", PLAN_Q4, None,
-                  check_in_order(Q4_COLUMNS, oracle_rows(oracle_q4)),
+                  chk["substr_groupby"], ("compact", "small_gather")),
+                 ("Q4", PLAN_Q4, None, chk["q4"], ORDERED_KERNELS),
+                 ("Q3 top 10", PLAN_Q3_TOP10, None, chk["q3_top10"],
                   ORDERED_KERNELS),
-                 ("Q3 top 10", PLAN_Q3_TOP10, None, check_top10,
-                  ORDERED_KERNELS),
-                 ("Q16", PLAN_Q16, None,
-                  check_in_order(Q16_COLUMNS, oracle_rows(oracle_q16)),
-                  ORDERED_KERNELS)]
+                 ("Q16", PLAN_Q16, None, chk["q16"], ORDERED_KERNELS)]
         total = {k: 0 for k in counters}
         join_total = {k: 0 for k in counters}
         os.environ.pop("MPLAN2VDL_MXU_AGG", None)
@@ -2097,6 +2187,22 @@ class Smoke:
             self.records["cli_run"] = rec
             print(json.dumps({"cli_run": rec}), flush=True)
 
+            # run --devices 2 on fewer cards than that, without --cpu: an
+            # error naming the card count, and no rows
+            p = subprocess.run([sys.executable, "-m", "mplan2vdl_tpu_torch",
+                                "run", path["q6"], "--sf", "0.01",
+                                "--devices", "2"], cwd=REPO,
+                               capture_output=True, text=True, timeout=300)
+            n_cards = self.torch.cuda.device_count()
+            if n_cards < 2 and (p.returncode == 0 or p.stdout
+                                or f"only {n_cards} device(s)"
+                                not in p.stderr):
+                raise AssertionError(f"run --devices 2 on {n_cards} card(s)"
+                                     f": exit {p.returncode}, {p.stderr}")
+            print(json.dumps({"cli_devices": 2, "cards": n_cards,
+                              "exit": p.returncode,
+                              "stderr": p.stderr.strip()[-200:]}), flush=True)
+
             # --tbl: Q1 and Q16 of an ingested store against the generated
             # one (decoded: the ingest's dictionary codes follow the sorted
             # strings, the generator's do not)
@@ -2130,26 +2236,23 @@ class Smoke:
         print(json.dumps({"cli_phase_s": self.records["cli_phase_s"]}),
               flush=True)
 
-    def dist_phase(self, coordinator=None):
-        """Phase 7: the distribution primitives (``parallel/``) at world
-        size 1 over NCCL on this card, over the phase-3 store: DistQuery Q6
-        and the Q1 group-by, ShuffleGroupBy over ``l_orderkey``, and
-        ShuffleJoin of ``l_orderkey`` against ``o_orderkey``, each exact
-        against its oracle, then timed (median of 5 warm calls).  The one
-        rank meets itself at ``coordinator`` (default: a free localhost
-        port)."""
+    def dist_phase(self, coordinator=None, phases=("dist",)):
+        """Phase 7 (``"dist"`` in ``phases``): the distribution primitives
+        (``parallel/``) at world size 1 over NCCL on this card, over the
+        phase-3 store: DistQuery Q6 and the Q1 group-by, ShuffleGroupBy
+        over ``l_orderkey``, and ShuffleJoin of ``l_orderkey`` against
+        ``o_orderkey``, each exact against its oracle, then timed (median
+        of 5 warm calls).  Then phase 8 (``"auto"``, ``auto_phase``) in the
+        same world.  The one rank meets itself at ``coordinator`` (default:
+        a free localhost port)."""
         import importlib
         import socket
 
-        import numpy as np
         import torch.distributed as tdist
 
-        from mplan2vdl_tpu_torch.parallel import dist, multihost
-        from mplan2vdl_tpu_torch.parallel.shuffle_agg import (
-            _SENT, ShuffleGroupBy, shard_shuffle_combine)
-        from mplan2vdl_tpu_torch.parallel.shuffle_join import ShuffleJoin
+        from mplan2vdl_tpu_torch.parallel import multihost
 
-        torch, st, dev = self.torch, self.st, self.dev
+        dev = self.dev
         counters = {
             k: (importlib.import_module(
                 f"mplan2vdl_tpu_torch.engine.kernels.{mod}"), attr)
@@ -2166,157 +2269,280 @@ class Smoke:
         multihost.initialize(coordinator, 1, 0, device=dev)
         try:
             mesh = multihost.data_mesh(device=dev)
-            backend = str(tdist.get_backend(mesh.group))
-
-            def cell(name, call, check, caps, nbytes, step=None):
-                self.sync()
-                t0 = time.perf_counter()
-                res = call()
-                self.sync()
-                cold = (time.perf_counter() - t0) * 1e3
-                check(res)
-                del res
-
-                def median(fn):
-                    times = []
-                    for _ in range(5):
-                        t0 = time.perf_counter()
-                        fn()
-                        self.sync()
-                        times.append((time.perf_counter() - t0) * 1e3)
-                    return statistics.median(times), times
-
-                torch.cuda.reset_peak_memory_stats()
-                med, times = median(call)
-                rec = {"dist": name, "world_size": mesh.size,
-                       "backend": backend, "device": str(mesh.device),
-                       "sf": self.args.sf, "median_ms": med, "ms": times,
-                       "cold_ms": cold, "bound_ms": _bound_ms(nbytes),
-                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-                       **caps(), "card": self.smi}
-                if step is not None:  # device work alone, no host gather
-                    rec["step_median_ms"], rec["step_ms"] = median(step)
-                self.records["dist"].append(rec)
-                print(json.dumps(rec), flush=True)
-
-            line = {c: st.columns[("lineitem", c)] for c in set(
-                DIST_Q6_COLUMNS + DIST_Q1_COLUMNS + ["l_orderkey"])}
-            n = len(line["l_orderkey"])
-
-            # -- DistQuery: Q6, and the Q1 group-by
-            def check_q6(res):
-                want = self.tpch_want("q6")
-                assert res["revenue"].tolist() == want["revenue"].tolist(), (
-                    res, want)
-
-            def check_q1(res):
-                nls = int(line["l_linestatus"].max()) + 1
-                got = sorted(zip((res["__group_id"] // nls).tolist(),
-                                 (res["__group_id"] % nls).tolist(),
-                                 res["sum_qty"].tolist(),
-                                 res["sum_base_price"].tolist(),
-                                 res["__count"].tolist()))
-                want = self.tpch_want("q1")
-                exp = sorted(zip(*[np.asarray(want[k]).tolist() for k in (
-                    "l_returnflag", "l_linestatus", "sum_qty",
-                    "sum_base_price", "count_order")]))
-                assert got == exp, (got, exp)
-
-            for name, cols, spec_of, check in (
-                    ("DistQuery Q6", DIST_Q6_COLUMNS,
-                     lambda c: dist_q6_query(), check_q6),
-                    ("DistQuery Q1 group-by", DIST_Q1_COLUMNS, dist_q1_query,
-                     check_q1)):
-                sub = {c: line[c] for c in cols}
-                t0 = time.perf_counter()
-                table = dist.ShardedTable.put(mesh, sub)
-                self.sync()
-                load_ms = (time.perf_counter() - t0) * 1e3
-                q = dist.DistQuery(table=table, **spec_of(sub))
-                cell(name, q, check,
-                     lambda: {"domain": q.domain, "shard_rows":
-                              table.shard_rows, "load_ms": load_ms},
-                     sum(line[c].nbytes for c in cols))
-                del q, table
-
-            # -- ShuffleGroupBy over l_orderkey, l_shipdate >= 1995-01-01
-            want = self.oracle(oracle_shuffle_groupby, st)
-            sparse = self.oracle(oracle_sparse_groupby, st)
-            for g, w in zip(want[:5], sparse, strict=True):
-                assert np.array_equal(g, w), "oracles disagree"
-
-            def i64(a):
-                return torch.from_numpy(np.asarray(a, np.int64)).to(dev)
-
-            ship = self.col("l_shipdate")
-            live = ship >= _day(1995, 1, 1)
-            keys = torch.where(live, i64(line["l_orderkey"]), _SENT)
-            qty, price = i64(line["l_quantity"]), self.col("l_extendedprice")
-            price = price.to(torch.int64)
-            vals = [qty, ship.to(torch.int64), qty,
-                    torch.ones(n, dtype=torch.int64, device=dev),
-                    price, price, price]
-            ops = ["sum", "min", "max", "sum", "sum", "min", "max"]
-            key_hi = int(line["l_orderkey"].max()) + 1
-            gb = ShuffleGroupBy(mesh=mesh, shard_rows=n, key_hi=key_hi,
-                                ops=ops)
-
-            def check_gb(res):
-                gk, gv = res
-                got = [gk] + gv
-                assert len(got) == len(want)
-                for i, (g, w) in enumerate(zip(got, want)):
-                    assert np.array_equal(np.asarray(g, np.int64),
-                                          np.asarray(w, np.int64)), \
-                        f"ShuffleGroupBy column {i} differs"
-
-            cell("ShuffleGroupBy", lambda: gb(keys, vals), check_gb,
-                 lambda: {"cap": gb.cap, "groups": len(want[0]),
-                          "shard_rows": n},
-                 (1 + len(vals)) * n * 8 + len(want[0]) * 8 * len(want),
-                 step=lambda: shard_shuffle_combine(
-                     keys, vals, ops, n, mesh.size, gb.per_owner, gb.cap,
-                     mesh))
-            del keys, vals, qty, price, ship, live
-
-            # -- ShuffleJoin: every lineitem row against the orders keys
-            okey = st.columns[("orders", "o_orderkey")]
-            row, found = self.oracle(_pk_lookup, okey, line["l_orderkey"])
-            assert found.all()
-            lk = self.col("l_orderkey")
-            rk = torch.from_numpy(np.ascontiguousarray(okey)).to(dev)
-            rpos = torch.arange(len(okey), dtype=torch.int64, device=dev)
-            sj = ShuffleJoin(mesh=mesh, shard_rows_l=n,
-                             shard_rows_r=len(okey),
-                             key_bounds=(0, int(okey.max()) + 1))
-
-            def check_join(res):
-                lidx, ok, cnt, (pay,) = res
-                assert (cnt == 1).all(), "a lineitem row without one match"
-                li, pj = lidx[ok], pay[ok]
-                assert len(li) == n and (np.bincount(li, minlength=n)
-                                         == 1).all(), "pairs differ"
-                by_row = np.empty(n, np.int64)
-                by_row[li] = pj
-                assert np.array_equal(by_row, row), "payloads differ"
-
-            cell("ShuffleJoin", lambda: sj(lk, rk, [rpos]), check_join,
-                 lambda: {"caps": list(sj._caps),
-                          "cap_scale": sj.cap_scale,
-                          "heavy_keys": (len(sj._heavy_plan[0])
-                                         if sj._heavy_plan else 0),
-                          "probe_rows": n, "build_rows": len(okey)},
-                 lk.numel() * 4 + rk.numel() * 4 + rpos.numel() * 8
-                 + n * (8 + 8 + 1 + 8),
-                 step=lambda: sj._build()(lk, rk, [rpos]))
-            del lk, rk, rpos, sj
+            if "dist" in phases:
+                self.primitives(mesh, counters, t_phase)
+            if "auto" in phases:
+                self.auto_phase(mesh)
         finally:
             tdist.destroy_process_group()
+
+    def primitives(self, mesh, counters, t_phase):
+        """Phase 7's four cells over ``mesh``; the engine kernels'
+        counters (``counters``, zeroed by the caller) are read after
+        them."""
+        import numpy as np
+        import torch.distributed as tdist
+
+        from mplan2vdl_tpu_torch.parallel import dist
+        from mplan2vdl_tpu_torch.parallel.shuffle_agg import (
+            _SENT, ShuffleGroupBy, shard_shuffle_combine)
+        from mplan2vdl_tpu_torch.parallel.shuffle_join import ShuffleJoin
+
+        torch, st, dev = self.torch, self.st, self.dev
+        backend = str(tdist.get_backend(mesh.group))
+
+        def cell(name, call, check, caps, nbytes, step=None):
+            self.sync()
+            t0 = time.perf_counter()
+            res = call()
+            self.sync()
+            cold = (time.perf_counter() - t0) * 1e3
+            check(res)
+            del res
+
+            def median(fn):
+                times = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    fn()
+                    self.sync()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                return statistics.median(times), times
+
+            torch.cuda.reset_peak_memory_stats()
+            med, times = median(call)
+            rec = {"dist": name, "world_size": mesh.size,
+                   "backend": backend, "device": str(mesh.device),
+                   "sf": self.args.sf, "median_ms": med, "ms": times,
+                   "cold_ms": cold, "bound_ms": _bound_ms(nbytes),
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   **caps(), "card": self.smi}
+            if step is not None:  # device work alone, no host gather
+                rec["step_median_ms"], rec["step_ms"] = median(step)
+            self.records["dist"].append(rec)
+            print(json.dumps(rec), flush=True)
+
+        line = {c: st.columns[("lineitem", c)] for c in set(
+            DIST_Q6_COLUMNS + DIST_Q1_COLUMNS + ["l_orderkey"])}
+        n = len(line["l_orderkey"])
+
+        # -- DistQuery: Q6, and the Q1 group-by
+        def check_q6(res):
+            want = self.tpch_want("q6")
+            assert res["revenue"].tolist() == want["revenue"].tolist(), (
+                res, want)
+
+        def check_q1(res):
+            nls = int(line["l_linestatus"].max()) + 1
+            got = sorted(zip((res["__group_id"] // nls).tolist(),
+                             (res["__group_id"] % nls).tolist(),
+                             res["sum_qty"].tolist(),
+                             res["sum_base_price"].tolist(),
+                             res["__count"].tolist()))
+            want = self.tpch_want("q1")
+            exp = sorted(zip(*[np.asarray(want[k]).tolist() for k in (
+                "l_returnflag", "l_linestatus", "sum_qty",
+                "sum_base_price", "count_order")]))
+            assert got == exp, (got, exp)
+
+        for name, cols, spec_of, check in (
+                ("DistQuery Q6", DIST_Q6_COLUMNS,
+                 lambda c: dist_q6_query(), check_q6),
+                ("DistQuery Q1 group-by", DIST_Q1_COLUMNS, dist_q1_query,
+                 check_q1)):
+            sub = {c: line[c] for c in cols}
+            t0 = time.perf_counter()
+            table = dist.ShardedTable.put(mesh, sub)
+            self.sync()
+            load_ms = (time.perf_counter() - t0) * 1e3
+            q = dist.DistQuery(table=table, **spec_of(sub))
+            cell(name, q, check,
+                 lambda: {"domain": q.domain, "shard_rows":
+                          table.shard_rows, "load_ms": load_ms},
+                 sum(line[c].nbytes for c in cols))
+            del q, table
+
+        # -- ShuffleGroupBy over l_orderkey, l_shipdate >= 1995-01-01
+        want = self.oracle(oracle_shuffle_groupby, st)
+        sparse = self.oracle(oracle_sparse_groupby, st)
+        for g, w in zip(want[:5], sparse, strict=True):
+            assert np.array_equal(g, w), "oracles disagree"
+
+        def i64(a):
+            return torch.from_numpy(np.asarray(a, np.int64)).to(dev)
+
+        ship = self.col("l_shipdate")
+        live = ship >= _day(1995, 1, 1)
+        keys = torch.where(live, i64(line["l_orderkey"]), _SENT)
+        qty, price = i64(line["l_quantity"]), self.col("l_extendedprice")
+        price = price.to(torch.int64)
+        vals = [qty, ship.to(torch.int64), qty,
+                torch.ones(n, dtype=torch.int64, device=dev),
+                price, price, price]
+        ops = ["sum", "min", "max", "sum", "sum", "min", "max"]
+        key_hi = int(line["l_orderkey"].max()) + 1
+        gb = ShuffleGroupBy(mesh=mesh, shard_rows=n, key_hi=key_hi,
+                            ops=ops)
+
+        def check_gb(res):
+            gk, gv = res
+            got = [gk] + gv
+            assert len(got) == len(want)
+            for i, (g, w) in enumerate(zip(got, want)):
+                assert np.array_equal(np.asarray(g, np.int64),
+                                      np.asarray(w, np.int64)), \
+                    f"ShuffleGroupBy column {i} differs"
+
+        cell("ShuffleGroupBy", lambda: gb(keys, vals), check_gb,
+             lambda: {"cap": gb.cap, "groups": len(want[0]),
+                      "shard_rows": n},
+             (1 + len(vals)) * n * 8 + len(want[0]) * 8 * len(want),
+             step=lambda: shard_shuffle_combine(
+                 keys, vals, ops, n, mesh.size, gb.per_owner, gb.cap,
+                 mesh))
+        del keys, vals, qty, price, ship, live
+
+        # -- ShuffleJoin: every lineitem row against the orders keys
+        okey = st.columns[("orders", "o_orderkey")]
+        row, found = self.oracle(_pk_lookup, okey, line["l_orderkey"])
+        assert found.all()
+        lk = self.col("l_orderkey")
+        rk = torch.from_numpy(np.ascontiguousarray(okey)).to(dev)
+        rpos = torch.arange(len(okey), dtype=torch.int64, device=dev)
+        sj = ShuffleJoin(mesh=mesh, shard_rows_l=n,
+                         shard_rows_r=len(okey),
+                         key_bounds=(0, int(okey.max()) + 1))
+
+        def check_join(res):
+            lidx, ok, cnt, (pay,) = res
+            assert (cnt == 1).all(), "a lineitem row without one match"
+            li, pj = lidx[ok], pay[ok]
+            assert len(li) == n and (np.bincount(li, minlength=n)
+                                     == 1).all(), "pairs differ"
+            by_row = np.empty(n, np.int64)
+            by_row[li] = pj
+            assert np.array_equal(by_row, row), "payloads differ"
+
+        cell("ShuffleJoin", lambda: sj(lk, rk, [rpos]), check_join,
+             lambda: {"caps": list(sj._caps),
+                      "cap_scale": sj.cap_scale,
+                      "heavy_keys": (len(sj._heavy_plan[0])
+                                     if sj._heavy_plan else 0),
+                      "probe_rows": n, "build_rows": len(okey)},
+             lk.numel() * 4 + rk.numel() * 4 + rpos.numel() * 8
+             + n * (8 + 8 + 1 + 8),
+             step=lambda: sj._build()(lk, rk, [rpos]))
+        del lk, rk, rpos, sj
         launches = {k: getattr(mod, attr)
                     for k, (mod, attr) in counters.items()}
         self.records["dist_phase_s"] = time.perf_counter() - t_phase
         print(json.dumps({"dist_phase_s": self.records["dist_phase_s"],
                           "dist_launches": launches}), flush=True)
+
+    def auto_phase(self, mesh):
+        """Phase 8: the plan distributor (``parallel/auto.py``) over
+        ``mesh`` on the phase-3 store: each of ``AUTO_PLANS`` through
+        ``auto.distribute`` (its set-up timed: the partitioned joins'
+        counting rounds), one cold call checked row-exact against the
+        plan's oracle (``plan_checks``), then 3 warm calls; one ``{"auto":
+        ...}`` line each with the distribution plan, the medians beside
+        the plan's phase-4 single-device median, the peak GB and the
+        engine kernels' launches over the calls.  The phase must launch
+        the compaction and the gather kernels."""
+        import importlib
+        import types
+
+        from mplan2vdl_tpu_torch.engine.lower import plan_to_vexps
+        from mplan2vdl_tpu_torch.parallel import auto
+
+        torch, st, cfg = self.torch, self.st, self.cfg
+        counters = {
+            k: (importlib.import_module(
+                f"mplan2vdl_tpu_torch.engine.kernels.{mod}"), attr)
+            for k, (mod, attr) in COUNTERS.items()}
+        checks = self.plan_checks()
+        single = {rec["query"]: rec["median_ms"]
+                  for rec in self.records["queries"]}
+        total = {k: 0 for k in counters}
+        t_phase = time.perf_counter()
+        self.records["auto"] = []
+        for name, text in AUTO_PLANS.items():
+            vexps = plan_to_vexps(text, cfg)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
+            self.sync()
+            t0 = time.perf_counter()
+            rec = {"auto": name, "world_size": mesh.size,
+                   "device": str(mesh.device), "sf": self.args.sf}
+            try:
+                dq = auto.distribute(cfg, st, vexps, mesh)
+            except auto.NotDistributable as e:
+                rec["not_distributable"] = str(e)
+                print(json.dumps(rec), flush=True)
+                self.records["auto"].append(rec)
+                continue
+            self.sync()
+            rec["setup_ms"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            res = dq.result()
+            self.sync()
+            rec["cold_ms"] = (time.perf_counter() - t0) * 1e3
+            checks[name](res)
+            rows_out = len(res.columns[0]) if res.columns else 0
+            del res
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                dq()
+                self.sync()
+                times.append((time.perf_counter() - t0) * 1e3)
+            launches = {k: getattr(mod, attr)
+                        for k, (mod, attr) in counters.items()}
+            for k in total:
+                total[k] += launches[k]
+            rec.update(
+                describe=dq.describe().splitlines(), rows_out=rows_out,
+                warm_ms=times, median_ms=statistics.median(times),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                launches=launches, card=self.smi)
+            if name in AUTO_PHASE4:
+                rec["single_device_median_ms"] = single.get(
+                    AUTO_PHASE4[name], single.get(AUTO_PHASE4_SMALL.get(
+                        name)))
+            else:  # no phase-4 run: the single-device engine here, checked
+                rec["single_device_median_ms"] = self.single_device_ms(
+                    vexps, checks[name])
+            if self.args.profile:  # one more warm call, traced
+                rec["profile"] = self.profile(f"auto {name}",
+                                              types.SimpleNamespace(run=dq))
+            print(json.dumps(rec), flush=True)
+            self.records["auto"].append(rec)
+            del dq
+        idle = [k for k in ("compact", "gather") if total[k] == 0]
+        if idle:
+            raise AssertionError(f"the distributed plans launched no "
+                                 f"{idle} kernel")
+        self.records["auto_phase_s"] = time.perf_counter() - t_phase
+        print(json.dumps({"auto_phase_s": self.records["auto_phase_s"],
+                          "auto_launches": total}), flush=True)
+
+    def single_device_ms(self, vexps, check):
+        """The median of 3 warm calls of the single-device engine on
+        ``vexps`` over the phase-3 store, after one call held to
+        ``check``."""
+        from mplan2vdl_tpu_torch.engine.lower import CompiledQuery
+
+        cq = CompiledQuery(self.cfg, vexps, self.st, device=self.dev)
+        check(cq())
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            cq()
+            self.sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
 
     def profile(self, name, cq):
         """One warm call under torch.profiler: device (kernel) time beside
@@ -2412,7 +2638,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="also write every record as JSON to this file")
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="profile one warm call of each query with "
+                    help="profile one warm call of each query (phase 4) "
+                         "and distributed plan (phase 8) with "
                          "torch.profiler; tables go to DIR")
     args = ap.parse_args(argv)
 
@@ -2432,7 +2659,7 @@ def main(argv=None) -> int:
     s.query_phase()
     s.probe_phase()
     s.cli_phase()
-    s.dist_phase()
+    s.dist_phase(phases=("dist", "auto"))
     summary = s.summary()
     s.records["summary"] = summary
     s.records["wall_s"] = time.perf_counter() - t0

@@ -19,14 +19,24 @@ Run a plan on the engine against a generated dataset, or against dbgen
 
     python -m mplan2vdl_tpu_torch run QUERY.mplan --sf 0.01 --seed 7 \
         [--decode] [--tbl DIR] [--cpu] [--profile DIR] \
-        [--roofline [--hbm-gbps GBPS]]
+        [--roofline [--hbm-gbps GBPS]] [--devices N [--explain-dist]]
 
 ``run`` uses the GPU; without one it fails unless ``--cpu`` asks for the
 CPU.  ``--profile DIR`` writes a torch.profiler trace of the call;
 ``--roofline`` prints ``CompiledQuery.cost_report`` on stderr, with the
 floor times only when ``--hbm-gbps`` gives the device's memory rate (it has
-no default).  ``--devices`` and ``--explain-dist`` wait for the port of the
-distribution layer (``parallel/``) and are not accepted.
+no default).
+
+``--devices N`` (N > 1) distributes the plan over N ranks with
+``parallel/auto.py``: N processes on this host, started by
+``torch.multiprocessing`` (spawn) and meeting on a free localhost port, one
+card each over NCCL, or with ``--cpu`` N CPU processes over gloo.  Under
+``torchrun`` (``WORLD_SIZE`` set) the command joins that world instead,
+which must have N processes.  Every rank builds the same store; rank 0
+alone prints.  A plan outside the distribution algebra runs on rank 0's
+device alone (``# not distributable (...)`` on stderr); ``--explain-dist``
+prints the distribution plan on stderr.  Fewer than N cards without
+``--cpu`` is an error.
 """
 
 from __future__ import annotations
@@ -194,35 +204,34 @@ def cmd_explain(args):
     print(explain_vexps(vexps))
 
 
-def _profiled_call(cq, out_dir):
-    """One call of ``cq`` under torch.profiler: CPU activity, and CUDA
+def _profiled_call(runner, device, out_dir):
+    """One call of ``runner`` under torch.profiler: CPU activity, and CUDA
     activity on the GPU.  Writes ``trace.json`` (a Chrome trace) and
     ``ops.txt`` (``key_averages`` by self device time; by self CPU time on
     the CPU) into ``out_dir`` and returns the call's result.  The columns
-    go to the device and the kernel library loads before the session
-    opens, so the trace holds the call alone.  Each kernel launch is a
-    range named after its C entry point (``m2v_gather``, ...).  On the GPU
-    it raises when the profiler recorded no device activity: a trace
-    without the card's kernels is not written.  Open one session per
-    process; a later session in the same process has been seen to miss
-    kernel records."""
+    are on ``device`` (the caller put them there) and the kernel library
+    loads before the session opens, so the trace holds the call alone.
+    Each kernel launch is a range named after its C entry point
+    (``m2v_gather``, ...).  On the GPU it raises when the profiler recorded
+    no device activity: a trace without the card's kernels is not
+    written.  Open one session per process; a later session in the same
+    process has been seen to miss kernel records."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
-    cq.device_args()
-    if cq.device.type == "cuda":
+    if device.type == "cuda":
         from .engine.kernels import _lib
 
         _lib.lib()
-        torch.cuda.synchronize(cq.device)
+        torch.cuda.synchronize(device)
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
-        res = cq()
+        res = runner()
     avg = prof.key_averages()
     sort = "self_cpu_time_total"
-    if cq.device.type == "cuda":
+    if device.type == "cuda":
         if not any(e.device_type == DeviceType.CUDA for e in avg):
             raise RuntimeError("--profile: the profiler recorded no CUDA "
                                "activity on the card")
@@ -253,11 +262,21 @@ def _print_roofline(rep):
 
 
 def cmd_run(args):
+    n_dev = args.devices or 0
+    if n_dev > 1:
+        _run_distributed(args, n_dev)
+        return
     from . import device
+
+    _run(args, device.resolve("cpu" if args.cpu else None))
+
+
+def _run(args, dev, mesh=None):
+    """``run`` on this process's ``dev``; with a ``mesh`` (this rank's),
+    distributed over its ranks, rank 0 alone printing."""
     from .engine import datagen
     from .engine.lower import CompiledQuery, plan_to_vexps
 
-    dev = device.resolve("cpu" if args.cpu else None)
     if args.tbl:
         from .engine import tblingest
 
@@ -267,15 +286,44 @@ def cmd_run(args):
                                  legacy_fk_names=args.legacy_fk_names)
     cfg = store.make_catalog(cross_product=args.use_cross_product)
     vexps = plan_to_vexps(_plan_text(args.plan), cfg)
-    cq = CompiledQuery(cfg, vexps, store, device=dev)
-    if args.profile:
-        res = _profiled_call(cq, args.profile)
+    lead = mesh is None or mesh.rank == 0
+
+    runner, cq = None, None
+    if mesh is not None:
+        from .parallel import auto
+
+        try:
+            dq = auto.distribute(cfg, store, vexps, mesh)
+            runner = dq.result
+            if args.explain_dist and lead:
+                for ln in dq.describe().splitlines():
+                    print(f"# {ln}", file=sys.stderr)
+        except auto.NotDistributable as e:
+            # decided alike on every rank, before any collective: rank 0
+            # runs the plan alone and the others are done
+            if not lead:
+                return
+            print(f"# not distributable ({e}); running single-chip",
+                  file=sys.stderr)
+    if runner is None:
+        cq = CompiledQuery(cfg, vexps, store, device=dev)
+        runner = cq
+    if args.profile and lead:
+        if cq is not None:
+            cq.device_args()
+        res = _profiled_call(runner, dev, args.profile)
         print(f"# profiler trace written to {args.profile}", file=sys.stderr)
     else:
-        res = cq()
+        res = runner()
+    if not lead:
+        return
     if args.roofline:
-        _print_roofline(cq.cost_report(hbm_gbps=args.hbm_gbps,
-                                       per_op=True))
+        if cq is None:
+            print("# --roofline accounts the single-chip program; "
+                  "ignored under --devices", file=sys.stderr)
+        else:
+            _print_roofline(cq.cost_report(hbm_gbps=args.hbm_gbps,
+                                           per_op=True))
     if args.decode:
         cols = res.decoded(store)
     else:
@@ -287,11 +335,70 @@ def cmd_run(args):
         print(",".join(str(c[1][i]) for c in cols))
 
 
+def _run_distributed(args, n_dev):
+    """``run --devices N``: join torchrun's world of N processes, or start
+    N ranks on this host (spawned, meeting on a free localhost port)."""
+    import socket
+
+    import torch
+    from torch.multiprocessing.spawn import ProcessException
+
+    world = os.environ.get("WORLD_SIZE")
+    if world is not None:
+        if int(world) != n_dev:
+            sys.exit(f"--devices {n_dev}: torchrun started {world} "
+                     "process(es)")
+        _rank_main(int(os.environ.get("RANK", "0")), n_dev, None,
+                   vars(args))
+        return
+    if not args.cpu and torch.cuda.device_count() < n_dev:
+        sys.exit(f"--devices {n_dev}: only {torch.cuda.device_count()} "
+                 f"device(s) available (use --cpu for {n_dev} gloo ranks)")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        url = f"tcp://localhost:{sock.getsockname()[1]}"
+    # the ranks share this host: NCCL's bootstrap over the loopback
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    sys.stdout.flush()
+    sys.stderr.flush()
+    try:
+        torch.multiprocessing.start_processes(
+            _rank_main, args=(n_dev, url, vars(args)), nprocs=n_dev,
+            start_method="spawn")
+    except ProcessException as e:
+        sys.exit(f"--devices {n_dev}: {e}")
+
+
+def _rank_main(rank, world, url, arg_dict):
+    """One rank of ``run --devices``: join the group (gloo on the CPU,
+    NCCL with card ``rank`` of this host otherwise), run, leave."""
+    import torch
+    import torch.distributed as tdist
+
+    from .parallel import multihost
+
+    args = argparse.Namespace(**arg_dict)
+    if args.cpu:
+        dev = torch.device("cpu")
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    elif url is None:  # torchrun: this process's card is LOCAL_RANK
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    else:
+        dev = torch.device("cuda", rank)
+    multihost.initialize(url, world, rank, device=dev)
+    try:
+        _run(args, dev, multihost.data_mesh(device=dev))
+    finally:
+        sys.stdout.flush()
+        sys.stderr.flush()
+        tdist.destroy_process_group()
+
+
 # flags that consume the next argv token (for the no-subcommand rewrite)
 _VALUE_FLAGS = {"-b", "--bounds", "-t", "--storage", "-s", "--schema",
                 "--dictionary", "-g", "--grainsize", "--sparsity",
-                "--goffset", "--sf", "--seed", "--profile", "--tbl",
-                "--hbm-gbps"}
+                "--goffset", "--sf", "--seed", "--devices", "--profile",
+                "--tbl", "--hbm-gbps"}
 _SUBCOMMANDS = ("compile", "genplans", "explain", "run")
 
 
@@ -377,6 +484,13 @@ def main(argv=None):
                          "instead of generating synthetic data")
     pr.add_argument("--cpu", action="store_true",
                     help="run on the CPU (the default is the GPU)")
+    pr.add_argument("--devices", type=int, default=0, metavar="N",
+                    help="distribute over N ranks, one card each (with "
+                         "--cpu, N CPU processes over gloo); plans outside "
+                         "the distribution algebra run on one device")
+    pr.add_argument("--explain-dist", action="store_true",
+                    help="print the distribution plan (sharded vs "
+                         "replicated columns, partitioned joins, domains)")
     pr.add_argument("--decode", action="store_true",
                     help="decode dictionary codes / dates / decimals")
     pr.add_argument("--use-cross-product", action="store_true")

@@ -288,6 +288,13 @@ class Compiler:
     # -------------------------------------------------------------- evaluate
     def trace(self, vexps: List[V.Vexp], tables: Dict[Name, torch.Tensor]
               ) -> List[Val]:
+        self.reset(tables)
+        return [self._force(self.eval(v)) for v in vexps]
+
+    def reset(self, tables) -> None:
+        """Fresh evaluation state over ``tables`` (column name -> device
+        tensor; anything with ``get`` and ``[]``): an empty memo and caches,
+        no joins logged, no host syncs."""
         self.memo: Dict[int, Val] = {}
         self.group_cache: Dict[tuple, dict] = {}
         self.fused_cache: Dict[int, dict] = {}
@@ -297,7 +304,6 @@ class Compiler:
         self.join_log: List[dict] = []
         self.host_syncs = 0
         self.tables = tables
-        return [self._force(self.eval(v)) for v in vexps]
 
     def eval(self, v: V.Vexp) -> Val:
         hit = self.memo.get(v.skey)

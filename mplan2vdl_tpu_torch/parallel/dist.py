@@ -84,6 +84,13 @@ def pmax(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     return out.reshape(x.shape)
 
 
+def pmin(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """Elementwise minimum over the ranks (``lax.pmin``)."""
+    out = x.reshape(-1).clone()
+    tdist.all_reduce(out, op=tdist.ReduceOp.MIN, group=mesh.group)
+    return out.reshape(x.shape)
+
+
 def all_to_all(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     """``x`` is (size, ...): block ``d`` goes to rank ``d``.  Returns the
     same shape, block ``s`` being what rank ``s`` sent here
@@ -103,11 +110,12 @@ def all_gather(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
 
 
 def all_gather_rows(mesh: Mesh, arrays: Sequence[torch.Tensor],
-                    keep: torch.Tensor) -> List[np.ndarray]:
+                    keep: torch.Tensor, host: bool = True) -> list:
     """The rows of ``arrays`` where ``keep``, from every rank in rank
-    order, as numpy: each rank compacts its rows on its device, the row
-    counts are all-gathered, and the rows travel padded to the largest
-    count (only live rows reach the host)."""
+    order, as numpy (``host=False``: as tensors on the rank's device):
+    each rank compacts its rows on its device, the row counts are
+    all-gathered, and the rows travel padded to the largest count (only
+    live rows reach the host)."""
     sel = torch.nonzero(keep).reshape(-1)
     counts = all_gather(mesh, torch.tensor(
         [sel.numel()], device=keep.device)).reshape(-1).tolist()
@@ -116,9 +124,11 @@ def all_gather_rows(mesh: Mesh, arrays: Sequence[torch.Tensor],
     for a in arrays:
         part = torch.zeros(width, dtype=a.dtype, device=a.device)
         part[:sel.numel()] = a[sel]
-        rows = all_gather(mesh, part).cpu().numpy()
-        out.append(np.concatenate([rows[r, :c]
-                                   for r, c in enumerate(counts)]))
+        rows = all_gather(mesh, part)
+        if host:
+            rows = rows.cpu().numpy()
+        parts = [rows[r, :c] for r, c in enumerate(counts)]
+        out.append(np.concatenate(parts) if host else torch.cat(parts))
     return out
 
 
@@ -153,17 +163,24 @@ class ShardedTable:
         """Every rank passes the full columns and keeps its own rows."""
         n = len(next(iter(columns.values())))
         shard_rows = -(-n // mesh.size)
-        lo = mesh.rank * shard_rows
-        out = {}
-        for name, arr in columns.items():
-            part = np.asarray(arr)[lo:lo + shard_rows]
-            buf = np.zeros(shard_rows, dtype=part.dtype)
-            buf[:len(part)] = part
-            out[name] = torch.from_numpy(buf).to(mesh.device)
+        out = {name: shard_window(mesh, arr, shard_rows)
+               for name, arr in columns.items()}
         return cls(mesh=mesh, n_rows=n, shard_rows=shard_rows, columns=out)
 
 
-def _dense_sums(terms: List[torch.Tensor], ids_ok: torch.Tensor,
+def shard_window(mesh: Mesh, arr: np.ndarray, shard_rows: int
+                 ) -> torch.Tensor:
+    """This rank's window ``[rank·shard_rows, (rank+1)·shard_rows)`` of
+    ``arr`` on its device, zero-padded to ``shard_rows`` (empty past the
+    end of ``arr``)."""
+    lo = mesh.rank * shard_rows
+    part = np.asarray(arr)[lo:lo + shard_rows]
+    buf = np.zeros(shard_rows, dtype=part.dtype)
+    buf[:len(part)] = part
+    return torch.from_numpy(buf).to(mesh.device)
+
+
+def dense_sums(terms: List[torch.Tensor], ids_ok: torch.Tensor,
                 domain: int) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """[domain] int64 sum of each term per group id, and the rows per id;
     rows whose id is ``domain`` are left out.  Small domains reduce once per
@@ -219,7 +236,7 @@ class DistQuery:
         ids_ok = torch.where(keep, ids, domain)
         # each term is cast after its callable, so int32 arithmetic inside
         # it wraps as it does in the JAX package
-        dense, occ = _dense_sums(
+        dense, occ = dense_sums(
             [self.agg_fns[a](cols).to(torch.int64) for a in self._aggs],
             ids_ok, domain)
         dense = [psum(mesh, d).cpu().numpy() for d in dense]

@@ -6,7 +6,9 @@
 store by ``chip_smoke.write_metadata``; the reference UX (no subcommand
 means compile, no FILE means stdin) holds through the port's ``main``.
 ``run --cpu`` prints the JAX ``run --cpu`` CSV (Q3 as a row multiset: the
-engines may order the pairs within a run of equal join keys differently).
+engines may order the pairs within a run of equal join keys differently),
+and ``run --devices 4 --cpu`` (four gloo ranks) the JAX CLI's bytes on a
+mesh of four CPU devices.
 ``CompiledQuery.cost_report`` is checked against the device arguments and
 the JAX engine's scan bytes, and ``run --profile`` / ``--roofline`` write
 what they promise.  Every comparison is exact."""
@@ -189,11 +191,98 @@ def test_device_free_commands_without_cuda(files, capsys, monkeypatch):
     assert called == []
 
 
-def test_run_options_not_ported_are_refused(files, capsys):
-    for flag in (["--devices", "2"], ["--explain-dist"]):
-        with pytest.raises(SystemExit):
-            tcli.main(["run", _plan(files, "q6"), "--cpu", *flag])
-    capsys.readouterr()
+# ------------------------------------------------------------ run --devices
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the sum of the ten largest prices: a top N inside the aggregate stage,
+# which neither package distributes
+PLAN_TOP10_SUM = """project (
+| group by (
+| | top N (
+| | | project (
+| | | | table(sys.lineitem) [ lineitem.l_extendedprice NOT NULL ] COUNT
+| | | ) [ lineitem.l_extendedprice ] [ lineitem.l_extendedprice ]
+| | ) [ wrd "10" ]
+| ) [  ] [ sys.sum no nil (lineitem.l_extendedprice NOT NULL) as L1.L1 ]
+) [ L1 as L2.top_price ]
+"""
+# run --devices 4 --cpu: (plan, extra flags)
+DIST_RUNS = {
+    "q6": ("q6", []),
+    "q6_explain_decode": ("q6", ["--explain-dist", "--decode"]),
+    "q3": ("q3", []),
+    "q3_explain_decode": ("q3", ["--explain-dist", "--decode"]),
+    "q13": ("q13", []),
+    "q13_explain_decode": ("q13", ["--explain-dist", "--decode"]),
+    "sparse_groupby": ("sparse_groupby", []),
+    "sparse_groupby_explain_decode": ("sparse_groupby",
+                                      ["--explain-dist", "--decode"]),
+    "top10_sum_not_distributable": ("top10_sum", ["--explain-dist"])}
+
+
+def _cli(package, argv):
+    """``python -m package ARGV`` in a fresh process from the repo's root:
+    (exit code, stdout, its stderr's ``# `` lines)."""
+    import subprocess
+
+    e = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
+    p = subprocess.run([sys.executable, "-m", package, *argv], cwd=REPO,
+                       env=e, capture_output=True, text=True, timeout=600)
+    return (p.returncode, p.stdout,
+            [ln for ln in p.stderr.splitlines() if ln.startswith("# ")])
+
+
+@pytest.mark.parametrize("run", sorted(DIST_RUNS))
+def test_run_devices_cpu_matches_jax(files, run):
+    """``run --devices 4 --cpu``: four gloo ranks print the JAX CLI's
+    bytes on its mesh of four CPU devices, stdout and the ``# `` lines of
+    stderr (``--explain-dist``'s plan, the not-distributable notice).
+    Both run in fresh processes, so the skeys in a partitioned join's
+    line are the same numbers."""
+    plan, extra = DIST_RUNS[run]
+    path = files["root"] / "top10_sum.mplan"  # beside the plan directory
+    if plan == "top10_sum":
+        path.write_text(PLAN_TOP10_SUM)
+    else:
+        path = _plan(files, plan)
+    argv = ["run", str(path), "--sf", "0.01", "--seed", "3", "--cpu",
+            "--devices", "4", *extra]
+    got = _cli("mplan2vdl_tpu_torch", argv)
+    want = _cli("mplan2vdl_tpu", argv)
+    assert got == want
+    assert got[0] == 0 and got[1].count("\n") >= 2
+    if plan == "top10_sum":
+        assert got[2] == ["# not distributable (ordered aggregate stage); "
+                          "running single-chip"]
+    elif "--explain-dist" in extra:
+        assert got[2][0].startswith("# fact table: ")
+
+
+def test_run_devices_one_is_single_device(files, capsys):
+    """``--devices 1`` (and 0, the default) run one device, as in JAX."""
+    argv = ["run", _plan(files, "q3"), "--sf", "0.005", "--seed", "3",
+            "--cpu"]
+    tcli.main(argv)
+    plain = capsys.readouterr()
+    tcli.main(argv + ["--devices", "1", "--explain-dist"])
+    assert capsys.readouterr() == plain
+
+
+def test_run_devices_without_cards_fails(files, capfd, monkeypatch):
+    """``--devices 2`` without ``--cpu`` needs two cards: with fewer it
+    exits nonzero, naming ``--cpu``, before it generates any data, and
+    prints no rows; there is no quiet fallback to the CPU."""
+    import torch
+
+    called = []
+    monkeypatch.setattr(tdatagen, "generate",
+                        lambda *a, **k: called.append(1))
+    for count in (0, 1):
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+        with pytest.raises(SystemExit) as e:
+            tcli.main(["run", _plan(files, "q6"), "--devices", "2"])
+        assert str(e.value) == (f"--devices 2: only {count} device(s) "
+                                "available (use --cpu for 2 gloo ranks)")
+    assert called == [] and capfd.readouterr().out == ""
 
 
 # ------------------------------------------------------------------- run

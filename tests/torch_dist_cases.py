@@ -1,5 +1,6 @@
 """Rank bodies and inputs of the port's distribution tests
-(``test_torch_parallel.py``, ``test_torch_shuffle_join.py``).
+(``test_torch_parallel.py``, ``test_torch_shuffle_join.py``; the plan
+distributor's suites live in ``torch_auto_cases.py``).
 
 Each world of ranks is a set of processes started in the ``spawn`` mode
 (never ``fork``: the pytest process runs JAX's threads) that meet through a
@@ -362,7 +363,17 @@ def _join_suite():
     return cases
 
 
-SUITES = {"parallel": _parallel_suite, "join": _join_suite}
+def _auto_suite(which):
+    def suite():
+        import torch_auto_cases
+
+        return getattr(torch_auto_cases, f"{which}_suite")()
+    return suite
+
+
+SUITES = {"parallel": _parallel_suite, "join": _join_suite,
+          "auto_cli": _auto_suite("cli"), "auto_fuzz": _auto_suite("fuzz"),
+          "auto_small": _auto_suite("small")}
 
 
 def run_rank(rank, world, url, out_dir, suite):
