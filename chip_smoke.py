@@ -35,9 +35,16 @@ Phases (any failure ends the run with a nonzero exit; nothing is caught):
      1, 2) (a dictionary recode), then the ordered path: TPC-H Q4 (a
      semijoin that marks orders through a scatter of repeated positions,
      ORDER BY), Q3 with its ORDER BY revenue DESC, o_orderdate LIMIT 10,
-     and Q16 (LIKE, an antijoin, count(DISTINCT), a four-key ORDER BY).
-     Each run is row-exact against its oracle (Q4 and Q16 in order, Q3's
-     top 10 tie-tolerantly), and the engine kernels' launch counters are
+     and Q16 (LIKE, an antijoin, count(DISTINCT), a four-key ORDER BY),
+     then four plans of the paths no other plan reaches at SF10: a
+     dense-domain join (PLAN_DENSE_JOIN), count(DISTINCT) on its dense
+     path (PLAN_DISTINCT_DENSE) and on its two-sort fallback
+     (PLAN_DISTINCT_WIDE), and a repeated-position scatter over most of
+     lineitem (PLAN_Q4_ALL), each with a spy that must see its path taken
+     (one ``{"path": ...}`` line each).
+     Each run is row-exact against its oracle (Q4, Q4 over all orders and
+     Q16 in order, Q3's top 10 tie-tolerantly), and the engine kernels'
+     launch counters are
      read around it (Q6 and every Q1 run must compact; the fused Q1 runs
      launch the fused aggregate once; the general-join runs launch the
      compaction and both gathers between them; each ordered run launches
@@ -89,7 +96,22 @@ Phases (any failure ends the run with a nonzero exit; nothing is caught):
      peak GB and the engine kernels' launches over its calls
      (``--profile`` traces one more warm call of each).  The phase must
      launch the compaction and the gather kernels (the shard-local engine
-     path runs the ported kernels).
+     path runs the ported kernels);
+  9. the plan census (tests/torch_census_cases.py) over a store of scale
+     CENSUS_SF = 1, cut from SF10 because its oracle runs in numpy on the
+     host: the JAX package's CPU census (40 fuzz plans, run three times:
+     with the default gate, MPLAN2VDL_FUSED_AGG=1, and MPLAN2VDL_MXU_AGG=1
+     besides; their 40 ordered forms; 7 null-semantics plans; 5 join
+     corners; 2 semi/anti joins with an extra condition; 2 count(DISTINCT)
+     plans) and the fourteen in-code plans (AUTO_PLANS), each through
+     ``passes.engine_passes(vir.vexps_from_mplan(...))`` + ``CompiledQuery``
+     on the card and held against the port's relational oracle
+     (``oracle/relinterp.py``, computed once a plan in spawned worker
+     processes; the ordered family in order), the null plans against
+     SQLite, the count(DISTINCT) plans also against a numpy distinct count;
+     one ``{"census": ...}`` line per family (plans, rows out, engine and
+     oracle seconds, launches, the card); the phase must launch every
+     engine kernel.
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits nonzero and prints no result.  The plan texts and the
@@ -359,6 +381,65 @@ PLAN_SUBSTR_GROUPBY = """project (
 ) [ custsale.cntrycode, L1 as L3.numcust, L2 as L3.totacctbal ]
 """
 
+# the paths no plan above reaches at SF10 (phase 4 shows each taken with a
+# spy).  lineitem joined, in PLAN_Q17's decorrelated form, with its own
+# per-l_shipdate average of l_quantity, the rows above it counted and their
+# price summed by l_returnflag: the build side holds one row per ship day
+# (2,374 at SF10) over a key domain below SMALL_TABLE, so the join takes the
+# dense-domain path although its probe keys do not ascend
+PLAN_DENSE_JOIN = """project (
+| group by (
+| | join (
+| | | table(sys.lineitem) [ lineitem.l_shipdate NOT NULL, lineitem.l_quantity NOT NULL, lineitem.l_extendedprice NOT NULL, lineitem.l_returnflag NOT NULL ] COUNT,
+| | | project (
+| | | | group by (
+| | | | | table(sys.lineitem) [ lineitem.l_shipdate NOT NULL as L1.l_shipdate, lineitem.l_quantity NOT NULL as L1.l_quantity ] COUNT
+| | | | ) [ L1.l_shipdate ] [ L1.l_shipdate, sys.avg no nil (L1.l_quantity NOT NULL) as L2.L2 ]
+| | | ) [ L1.l_shipdate as L3.l_shipdate, L2.L2 as L3.avg_qty ]
+| | ) [ lineitem.l_shipdate NOT NULL = L3.l_shipdate, lineitem.l_quantity NOT NULL > L3.avg_qty ]
+| ) [ lineitem.l_returnflag ] [ lineitem.l_returnflag, sys.count() NOT NULL as L4.L4, sys.sum no nil (lineitem.l_extendedprice NOT NULL) as L5.L5 ]
+) [ lineitem.l_returnflag, L4 as L6.cnt, L5 as L6.sum_price ]
+"""
+
+# count(DISTINCT l_partkey) over every lineitem row by (l_returnflag,
+# l_linestatus): a group domain of at most segred.SMALL_DOMAIN ids, so the
+# distinct counts take the dense masked reductions
+PLAN_DISTINCT_DENSE = """project (
+| group by (
+| | table(sys.lineitem) [ lineitem.l_returnflag NOT NULL, lineitem.l_linestatus NOT NULL, lineitem.l_partkey NOT NULL ] COUNT
+| ) [ lineitem.l_returnflag, lineitem.l_linestatus ] [ lineitem.l_returnflag, lineitem.l_linestatus, sys.count unique no nil (lineitem.l_partkey) NOT NULL as L1.L1 ]
+) [ lineitem.l_returnflag, lineitem.l_linestatus, L1 as L2.parts ]
+"""
+
+# count(DISTINCT l_extendedprice) by (l_orderkey, l_partkey) over the
+# lineitems shipped in June 1995 (the filter becomes the fold's mask, so
+# every row is sorted): the (group id, price) key needs more than 62 bits
+# (a group domain of 2^45 times a price width of about 2^23.3 at SF10: 69
+# bits), so the pairs take the two stable sorts
+PLAN_DISTINCT_WIDE = """project (
+| group by (
+| | select (
+| | | table(sys.lineitem) [ lineitem.l_orderkey NOT NULL, lineitem.l_partkey NOT NULL, lineitem.l_extendedprice NOT NULL, lineitem.l_shipdate NOT NULL ] COUNT
+| | ) [ lineitem.l_shipdate NOT NULL >= date "1995-06-01", lineitem.l_shipdate NOT NULL < date "1995-07-01" ]
+| ) [ lineitem.l_orderkey, lineitem.l_partkey ] [ lineitem.l_orderkey, lineitem.l_partkey, sys.count unique no nil (lineitem.l_extendedprice) NOT NULL as L1.L1 ]
+) [ lineitem.l_orderkey, lineitem.l_partkey, L1 as L2.prices ]
+"""
+
+# TPC-H Q4 without its date window: every order with a late lineitem,
+# counted per o_orderpriority; the semijoin marks orders through a scatter
+# of all the late lineitems' positions (~63% of lineitem)
+PLAN_Q4_ALL = """project (
+| group by (
+| | semijoin (
+| | | table(sys.orders) [ orders.o_orderkey NOT NULL, orders.o_orderpriority NOT NULL ] COUNT,
+| | | select (
+| | | | table(sys.lineitem) [ lineitem.l_orderkey NOT NULL, lineitem.l_commitdate NOT NULL, lineitem.l_receiptdate NOT NULL ] COUNT
+| | | ) [ lineitem.l_commitdate NOT NULL < lineitem.l_receiptdate NOT NULL ]
+| | ) [ orders.o_orderkey NOT NULL = lineitem.l_orderkey NOT NULL ]
+| ) [ orders.o_orderpriority ] [ orders.o_orderpriority, sys.count() NOT NULL as L1.order_count ]
+) [ orders.o_orderpriority, L1.order_count ] [ orders.o_orderpriority ASC ]
+"""
+
 Q1_COLUMNS = ["l_returnflag", "l_linestatus", "sum_qty", "sum_base_price",
               "sum_disc_price", "sum_charge", "avg_qty", "avg_price",
               "avg_disc", "count_order"]
@@ -449,6 +530,36 @@ Q5_ENTRIES = {"m2v_compact": "compact", "m2v_gather": "gather",
 # SF10's .tbl text is about 10 GB
 TBL_SF = 0.1
 REPO = os.path.dirname(os.path.abspath(__file__))
+# phase 9: the JAX package's CPU plan census (tests/torch_census_cases.py)
+# on the card, held against the port's relational oracle.  Its store is SF1
+# (lineitem 6,001,215 rows), not SF10: the oracle runs on the host in numpy,
+# and its group-bys (np.unique over the key rows, np.add.at folds) take tens
+# of seconds a plan over SF10's 60M rows, too long for ~100 plans in one run
+CENSUS_SF = 1.0
+CENSUS_CUT = ("SF1, not SF10: the numpy oracle takes tens of seconds a plan "
+              "over SF10's 60M lineitem rows, too long for ~100 plans")
+# the fuzz plans' three passes: (family line, MPLAN2VDL_FUSED_AGG,
+# MPLAN2VDL_MXU_AGG); the default gate leaves SF1 unfused
+FUZZ_PASSES = (("fuzz", None, None), ("fuzz_fused", "1", None),
+               ("fuzz_mxu", "1", "1"))
+# what each family is held against besides the row count
+CENSUS_REFERENCE = {"fuzz": "relinterp", "ordered": "relinterp, in order",
+                    "null": "sqlite", "corners": "relinterp",
+                    "semi_anti": "relinterp",
+                    "distinct": "relinterp and a numpy distinct count",
+                    "tpch": "relinterp"}
+# worker processes computing the census oracles while the card runs
+CENSUS_WORKERS = 6
+# the phase-4 runs of the paths no CLI plan reaches at SF10, each shown
+# taken by a spy: the dense-domain join, FDistinct's dense path and its
+# two-sort fallback, and a repeated-position scatter over most of lineitem
+DENSE_JOIN_RUN = "dense-domain join"
+DISTINCT_DENSE_RUN = "count(DISTINCT) dense"
+DISTINCT_WIDE_RUN = "count(DISTINCT) two-sort"
+Q4_ALL_RUN = "Q4 all orders"
+DENSE_JOIN_COLUMNS = ["l_returnflag", "cnt", "sum_price"]
+DISTINCT_DENSE_COLUMNS = ["l_returnflag", "l_linestatus", "parts"]
+DISTINCT_WIDE_COLUMNS = ["l_orderkey", "l_partkey", "prices"]
 # the query runs of the general-join slice, and the engine kernels they
 # must launch between them
 JOIN_RUNS = ("Q9", "Q13", "Q17", "substring group-by")
@@ -686,20 +797,90 @@ def _by_order(cols, spec):
     return [np.asarray(c)[order] for c in cols]
 
 
-def oracle_q4(st):
+def _q4(st, window):
+    """The orders (of the o_orderdate ``window``, if any) with a late
+    lineitem, counted per o_orderpriority in the order of its codes."""
     import numpy as np
 
     c = lambda t, n: st.columns[(t, n)]  # noqa: E731
     late = c("lineitem", "l_commitdate") < c("lineitem", "l_receiptdate")
     oi, ofound = _pk_lookup(c("orders", "o_orderkey"),
                             c("lineitem", "l_orderkey")[late])
-    has_late = np.zeros(len(c("orders", "o_orderkey")), bool)
-    has_late[oi[ofound]] = True
-    odate = c("orders", "o_orderdate")
-    m = has_late & (odate >= _day(1993, 7, 1)) & (odate < _day(1993, 10, 1))
+    m = np.zeros(len(c("orders", "o_orderkey")), bool)
+    m[oi[ofound]] = True
+    if window is not None:
+        odate = c("orders", "o_orderdate")
+        m &= (odate >= window[0]) & (odate < window[1])
     # _group's keys ascend: the order of o_orderpriority's codes
     return _group([c("orders", "o_orderpriority")[m]],
                   [(np.ones(int(m.sum()), np.int64), np.add)])
+
+
+def oracle_q4(st):
+    return _q4(st, (_day(1993, 7, 1), _day(1993, 10, 1)))
+
+
+def oracle_q4_all(st):
+    return _q4(st, None)
+
+
+def oracle_dense_join(st):
+    """PLAN_DENSE_JOIN: each row against its ship day's average quantity
+    (sum // count in l_quantity's scale)."""
+    import numpy as np
+
+    c = lambda n: st.columns[("lineitem", n)]  # noqa: E731
+    qty = c("l_quantity").astype(np.int64)
+    _, day = np.unique(c("l_shipdate"), return_inverse=True)
+    day = day.reshape(-1)
+    # float64 sums are exact: a day holds far fewer than 2^53 / 5000 rows
+    sums = np.bincount(day, qty.astype(np.float64)).astype(np.int64)
+    avg = sums // np.bincount(day)
+    keep = qty > avg[day]
+    return _group([c("l_returnflag")[keep]],
+                  [(np.ones(int(keep.sum()), np.int64), np.add),
+                   (c("l_extendedprice")[keep], np.add)])
+
+
+def _distinct_counts(keys, vals):
+    """Per distinct key tuple (ascending), the count of distinct values:
+    the (keys, value) rows sorted, as one packed int64 key where their
+    ranges fit 62 bits."""
+    import numpy as np
+
+    cols = [np.asarray(k, np.int64) for k in keys] + [
+        np.asarray(vals, np.int64)]
+    n = len(cols[0])
+    lo = [int(c.min()) if n else 0 for c in cols]
+    bits = [int(c.max()) - b if n else 0 for c, b in zip(cols, lo)]
+    bits = [b.bit_length() for b in bits]
+    if sum(bits) <= 62:
+        key = np.zeros(n, np.int64)
+        for c, b, w in zip(cols, lo, bits):
+            key = (key << w) | (c - b)
+        order = np.argsort(key, kind="stable")
+    else:
+        order = np.lexsort(cols[::-1])
+    s = [c[order] for c in cols]
+    fresh = np.zeros(n, bool)
+    fresh[:1] = True
+    for c in s:
+        fresh[1:] |= c[1:] != c[:-1]
+    return _group(s[:-1], [(fresh.astype(np.int64), np.add)])
+
+
+def oracle_distinct_dense(st):
+    c = lambda n: st.columns[("lineitem", n)]  # noqa: E731
+    return _distinct_counts([c("l_returnflag"), c("l_linestatus")],
+                            c("l_partkey"))
+
+
+def oracle_distinct_wide(st):
+    c = lambda n: st.columns[("lineitem", n)]  # noqa: E731
+    ship = c("l_shipdate")
+    m = (ship >= _day(1995, 6, 1)) & (ship < _day(1995, 7, 1))
+    return _distinct_counts([c("l_orderkey")[m], c("l_partkey")[m]],
+                            c("l_extendedprice")[m])
 
 
 def q3_top10(q3):
@@ -1826,7 +2007,13 @@ class Smoke:
             "q4": check_in_order(Q4_COLUMNS, oracle_q4),
             "q3_top10": check_top10,
             "q16": check_in_order(Q16_COLUMNS, oracle_q16),
-            "self_join": check_rows(SELF_JOIN_COLUMNS, oracle_self_join)}
+            "self_join": check_rows(SELF_JOIN_COLUMNS, oracle_self_join),
+            "dense_join": check_rows(DENSE_JOIN_COLUMNS, oracle_dense_join),
+            "distinct_dense": check_rows(DISTINCT_DENSE_COLUMNS,
+                                         oracle_distinct_dense),
+            "distinct_wide": check_rows(DISTINCT_WIDE_COLUMNS,
+                                        oracle_distinct_wide),
+            "q4_all": check_in_order(Q4_COLUMNS, oracle_q4_all)}
         return self._checks
 
     def query_phase(self):
@@ -1877,7 +2064,15 @@ class Smoke:
                  ("Q4", PLAN_Q4, None, chk["q4"], ORDERED_KERNELS),
                  ("Q3 top 10", PLAN_Q3_TOP10, None, chk["q3_top10"],
                   ORDERED_KERNELS),
-                 ("Q16", PLAN_Q16, None, chk["q16"], ORDERED_KERNELS)]
+                 ("Q16", PLAN_Q16, None, chk["q16"], ORDERED_KERNELS),
+                 (DENSE_JOIN_RUN, PLAN_DENSE_JOIN, None, chk["dense_join"],
+                  ("compact", "gather", "small_gather")),
+                 (DISTINCT_DENSE_RUN, PLAN_DISTINCT_DENSE, None,
+                  chk["distinct_dense"], ("compact",)),
+                 (DISTINCT_WIDE_RUN, PLAN_DISTINCT_WIDE, None,
+                  chk["distinct_wide"], ("compact", "gather")),
+                 (Q4_ALL_RUN, PLAN_Q4_ALL, None, chk["q4_all"],
+                  ("compact", "gather", "small_gather"))]
         total = {k: 0 for k in counters}
         join_total = {k: 0 for k in counters}
         os.environ.pop("MPLAN2VDL_MXU_AGG", None)
@@ -1911,13 +2106,44 @@ class Smoke:
             return call
         repeat_scatter = lower.repeat_scatter
 
+        # the engine paths of each query's first run: the dense-domain joins
+        # taken, count(DISTINCT)'s group domains and how its pairs sorted
+        paths = {}
+        dense_join = lower.Compiler._dense_join
+        fold_distinct = lower.Compiler._eval_fold_distinct
+        sort_pairs = lower._sort_pairs
+
+        def record_paths(query):
+            rec = paths.setdefault(query, {"dense_joins": 0, "merge_joins": 0,
+                                           "distinct_domains": [],
+                                           "pair_sorts": []})
+
+            def dense(c, *a, **k):
+                out = dense_join(c, *a, **k)
+                rec["dense_joins" if out is not None else "merge_joins"] += 1
+                return out
+
+            def distinct(c, vx, dt, domain, L_out):
+                rec["distinct_domains"].append(domain)
+                return fold_distinct(c, vx, dt, domain, L_out)
+
+            def pairs(ids, vals, domain, vlo, vhi):
+                top = (domain + 1) * (vhi - vlo + 1)
+                rec["pair_sorts"].append({
+                    "n": ids.shape[0], "domain": domain,
+                    "width": vhi - vlo + 1,
+                    "packed": top <= lower.PACK_LIMIT,
+                    "key_bits": (top - 1).bit_length()})
+                return sort_pairs(ids, vals, domain, vlo, vhi)
+            return dense, distinct, pairs
+
         for name, plan, fused, check, must in runs:
             if fused is None:
                 os.environ.pop("MPLAN2VDL_FUSED_AGG", None)
             else:
                 os.environ["MPLAN2VDL_FUSED_AGG"] = fused
             cq = CompiledQuery(cfg, plan_to_vexps(plan, cfg), st,
-                               device="cuda")
+                               device=self.dev)
             os.environ.pop("MPLAN2VDL_FUSED_AGG", None)
             if name == Q1_MXU:  # read when the family is evaluated
                 os.environ["MPLAN2VDL_MXU_AGG"] = "1"
@@ -1929,11 +2155,16 @@ class Smoke:
                 setattr(mod, attr, 0)
             lower.monotone_scatter = record_scatter(name)
             lower.repeat_scatter = record_repeat(name)
+            (lower.Compiler._dense_join, lower.Compiler._eval_fold_distinct,
+             lower._sort_pairs) = record_paths(name)
             try:
                 res = cq()
             finally:
                 lower.monotone_scatter = scatter.monotone_scatter
                 lower.repeat_scatter = repeat_scatter
+                lower.Compiler._dense_join = dense_join
+                lower.Compiler._eval_fold_distinct = fold_distinct
+                lower._sort_pairs = sort_pairs
             launches = {k: getattr(mod, attr)
                         for k, (mod, attr) in counters.items()}
             for k in total:
@@ -1947,6 +2178,8 @@ class Smoke:
             for r in repeats.get(name, ()):
                 print(json.dumps({"repeat_scatter": name, **r}), flush=True)
             check(res)
+            self.check_path(name, paths[name], cq.join_log,
+                            repeats.get(name, []))
             if name == "Q4":
                 # the semijoin's marks: one scatter through repeated
                 # positions (several late lineitems of one order)
@@ -1990,7 +2223,7 @@ class Smoke:
                    "launches": launches, "host_syncs": cq.host_syncs,
                    "joins": cq.join_log,
                    "repeat_scatters": repeats.get(name, []),
-                   "card": self.smi}
+                   "paths": paths[name], "card": self.smi}
             if self.args.profile:
                 rec["profile"] = self.profile(name, cq)
             self.records["queries"].append(rec)
@@ -2018,6 +2251,35 @@ class Smoke:
             raise AssertionError(f"the general-join runs launched no {idle}")
         print(json.dumps({"main_path_launches": total,
                           "general_join_launches": join_total}), flush=True)
+
+    def check_path(self, name, rec, joins, repeats):
+        """The run of a path no CLI plan reaches at SF10 must take it, as
+        the spies of ``query_phase`` saw its first call: every equijoin
+        dense; every count(DISTINCT) over at most segred.SMALL_DOMAIN ids;
+        a pair sort past lower.PACK_LIMIT (two stable sorts); one
+        repeated-position scatter with repeats, of more positions than half
+        of lineitem.  The run's ``{"path": ...}`` line shows what was
+        taken."""
+        from mplan2vdl_tpu_torch.engine.kernels import segred
+
+        if name == DENSE_JOIN_RUN:
+            ok = (rec["dense_joins"] > 0 and rec["merge_joins"] == 0
+                  and {j["path"] for j in joins} == {"dense"})
+        elif name == DISTINCT_DENSE_RUN:
+            ok = (rec["distinct_domains"] != [] and max(
+                rec["distinct_domains"]) <= segred.SMALL_DOMAIN)
+        elif name == DISTINCT_WIDE_RUN:
+            ok = any(not p["packed"] for p in rec["pair_sorts"])
+        elif name == Q4_ALL_RUN:
+            ok = (len(repeats) == 1 and repeats[0]["n"] > self.n // 2
+                  and repeats[0]["distinct"] < repeats[0]["valid"])
+        else:
+            return
+        print(json.dumps({"path": name, **rec, "joins": joins,
+                          "repeat_scatters": repeats}), flush=True)
+        if not ok:
+            raise AssertionError(f"{name} did not take its path: {rec}, "
+                                 f"joins {joins}, scatters {repeats}")
 
     def probe_phase(self):
         """Runs the two probe tools on the card with their launch counters
@@ -2544,6 +2806,155 @@ class Smoke:
             times.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(times)
 
+    def census_phase(self, sf=CENSUS_SF, workers=CENSUS_WORKERS):
+        """Phase 9: the JAX package's CPU plan census
+        (tests/torch_census_cases.py: 40 fuzz, 40 ordered fuzz, 7
+        null-semantics, 5 join-corner, 2 semi/anti and 2 count(DISTINCT)
+        plans) and the fourteen in-code plans, through
+        ``vir.vexps_from_mplan`` + ``passes.engine_passes`` +
+        ``CompiledQuery`` on the card over a store of scale ``sf``, each
+        result held against the port's relational oracle as rows (the
+        ordered family in order), the null plans against SQLite and the
+        count(DISTINCT) plans also against a numpy distinct count; the fuzz
+        plans run three times: with the default gate, with
+        MPLAN2VDL_FUSED_AGG=1 and with MPLAN2VDL_MXU_AGG=1 besides.  The
+        oracles run once a plan, in ``workers`` spawned processes, each
+        with its own copy of the store, while the card runs.  One
+        ``{"census": ...}`` line per family; the engine kernels' counters
+        are read around the phase, and each of them must have launched."""
+        import concurrent.futures as cf
+        import importlib
+        import multiprocessing
+
+        import numpy as np
+
+        import mplan2vdl_tpu_torch
+        from mplan2vdl_tpu_torch import passes, vir
+        from mplan2vdl_tpu_torch.engine import datagen
+        from mplan2vdl_tpu_torch.engine.lower import CompiledQuery
+
+        tests = os.path.join(REPO, "tests")
+        if tests not in sys.path:
+            sys.path.insert(0, tests)
+        import torch_census_cases as census
+
+        counters = {
+            k: (importlib.import_module(
+                f"mplan2vdl_tpu_torch.engine.kernels.{mod}"), attr)
+            for k, (mod, attr) in COUNTERS.items()}
+        t_phase = time.perf_counter()
+        st = datagen.generate(sf=sf, seed=self.args.seed)
+        cfg = st.make_catalog()
+        n_li = st.table_count(("lineitem",))
+        datagen_s = time.perf_counter() - t_phase
+        cases = census.case_names()
+        # the oracle of every plan the port's oracle checks, computed once
+        pool = cf.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn"),
+            initializer=census.oracle_worker_init,
+            initargs=(sf, self.args.seed))
+        futures = {c: pool.submit(census.oracle_columns, *c)
+                   for c in cases if c[0] != "null"}
+        tp = np.asarray(st.columns[("orders", "o_totalprice")])
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        try:
+            # every run on the card first: (family line, name) -> columns
+            got, joins, stats = {}, {}, {}
+            for family, name in cases:
+                plan = census.build(mplan2vdl_tpu_torch, family, name, st,
+                                    cfg)
+                lines = FUZZ_PASSES if family == "fuzz" else (
+                    (family, None, None),)
+                for line, fused, mxu in lines:
+                    rec = stats.setdefault(line, {
+                        "plans": 0, "rows_out": 0, "engine_s": 0.0,
+                        "launches": {k: 0 for k in counters}})
+                    before = {k: getattr(m, a)
+                              for k, (m, a) in counters.items()}
+                    t0 = time.perf_counter()
+                    for var, val in (("MPLAN2VDL_FUSED_AGG", fused),
+                                     ("MPLAN2VDL_MXU_AGG", mxu)):
+                        if val is None:
+                            os.environ.pop(var, None)
+                        else:
+                            os.environ[var] = val
+                    try:
+                        cq = CompiledQuery(cfg, passes.engine_passes(
+                            vir.vexps_from_mplan(plan, cfg)), st,
+                            device=self.dev)
+                        res = cq()
+                    finally:
+                        os.environ.pop("MPLAN2VDL_FUSED_AGG", None)
+                        os.environ.pop("MPLAN2VDL_MXU_AGG", None)
+                    rec["engine_s"] += time.perf_counter() - t0
+                    for k, (m, a) in counters.items():
+                        rec["launches"][k] += getattr(m, a) - before[k]
+                    rec["plans"] += 1
+                    rec["rows_out"] += (len(res.columns[0])
+                                        if res.columns else 0)
+                    got[line, name] = census.int_columns(res.columns)
+                    joins[line, name] = {j["side"] for j in cq.join_log}
+                    del cq
+            launched = {k: getattr(m, a) for k, (m, a) in counters.items()}
+            # then every check: the oracle's rows (in order for the ordered
+            # family), SQLite's for the null plans
+            db = None
+            for family, name in cases:
+                lines = FUZZ_PASSES if family == "fuzz" else (
+                    (family, None, None),)
+                t0 = time.perf_counter()
+                if family == "null":
+                    if db is None:
+                        db = census.null_db(st)
+                    ref = census.sql_rows(db, census.null_sql(name, tp))
+                    oracle_s = time.perf_counter() - t0
+                else:
+                    cols, oracle_s = futures[family, name].result()
+                for line, _, _ in lines:
+                    rec = stats[line]
+                    rec["oracle_s"] = rec.get("oracle_s", 0.0) + (
+                        oracle_s if line == family else 0.0)
+                    g = got[line, name]
+                    if family == "null":
+                        ok = census.rows(g) == ref
+                    elif family == "ordered":
+                        ok = len(g) == len(cols) and all(
+                            np.array_equal(a, b) for a, b in zip(g, cols))
+                    else:
+                        ok = census.rows(g) == census.rows(cols)
+                    if ok and family == "distinct":
+                        key = census.DISTINCT[name][1]
+                        ok = dict(zip(g[0].tolist(), g[1].tolist())) == \
+                            census.numpy_distinct(st, key, "l_suppkey")
+                    if ok and family == "corners":
+                        ok = joins[line, name] == census.CORNERS[name]
+                    if not ok:
+                        raise AssertionError(
+                            f"census {line} {name}: the card's rows differ "
+                            f"from the {CENSUS_REFERENCE[family]}")
+                    rec["checked"] = rec.get("checked", 0) + 1
+        finally:
+            pool.shutdown(cancel_futures=True)
+        wall = time.perf_counter() - t_phase
+        for line, rec in stats.items():
+            family = line.split("_")[0] if line.startswith("fuzz") else line
+            out = {"census": line, **rec,
+                   "reference": CENSUS_REFERENCE[family], "sf": sf,
+                   "lineitem_rows": n_li, "cut": CENSUS_CUT,
+                   "card": self.smi}
+            self.records.setdefault("census", []).append(out)
+            print(json.dumps(out), flush=True)
+        idle = [k for k, v in launched.items() if v == 0]
+        end = {"census_phase_s": wall, "datagen_s": datagen_s,
+               "oracle_workers": workers, "census_launches": launched,
+               "plans": len(cases),
+               "runs": sum(r["plans"] for r in stats.values())}
+        self.records["census_phase"] = end
+        print(json.dumps(end), flush=True)
+        if idle:
+            raise AssertionError(f"the census launched no {idle} kernel")
+
     def profile(self, name, cq):
         """One warm call under torch.profiler: device (kernel) time beside
         the host wall time, and the ops that own the most device time.
@@ -2660,6 +3071,7 @@ def main(argv=None) -> int:
     s.probe_phase()
     s.cli_phase()
     s.dist_phase(phases=("dist", "auto"))
+    s.census_phase()
     summary = s.summary()
     s.records["summary"] = summary
     s.records["wall_s"] = time.perf_counter() - t0

@@ -410,3 +410,29 @@ def generate(sf: float, seed: int = 0,
     store.build_fk_indexes()
     return store
 
+
+
+def cached_store(sf: float, seed: int = 1, *, cache_root: str):
+    """Load the persisted store for (sf, seed) from under ``cache_root``,
+    regenerating (and re-saving) on a missing or CORRUPT cache — load_store
+    validates column lengths against the manifest, so a half-written cache
+    raises instead of silently running queries over truncated tables.
+    The caller names the directory: there is no default."""
+    import os
+
+    from .columnstore import ColumnStore
+
+    cache = os.path.join(cache_root, f"mplan2vdl_store_sf{sf:g}_seed{seed}")
+    if os.path.isdir(cache):
+        try:
+            return ColumnStore.load(cache)
+        except Exception:
+            import shutil
+
+            shutil.rmtree(cache, ignore_errors=True)
+    store = generate(sf=sf, seed=seed)
+    try:
+        store.save(cache)
+    except Exception:
+        pass  # cache is best-effort
+    return store

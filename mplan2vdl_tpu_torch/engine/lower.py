@@ -69,6 +69,11 @@ FUSED_AUTO_ROWS = 24_000_000
 DENSE_DOMAIN = 1 << 26
 DENSE_RIGHT_MAX = (1 << 16) - 1
 
+# count(DISTINCT): the (group id, value) pairs sort as one packed int64 key
+# while (domain + 1) * value width stays at most this; past it, two stable
+# sorts (_sort_pairs)
+PACK_LIMIT = 2**62
+
 _INT_DTYPES = (torch.int32, torch.int64)
 
 
@@ -231,11 +236,11 @@ def _sort_pairs(ids: torch.Tensor, vals: torch.Tensor, domain: int,
     """The (id, value) pairs sorted by id, then value: (sorted ids, whether
     each sorted pair differs from the one before it).  Ids lie in
     [0, domain] and values in [vlo, vhi].  One sort of the packed key
-    ``id * W + (value - vlo)``, in int32 when it fits and in int64 below
-    2**62; two stable sorts, value first, where it does not fit."""
+    ``id * W + (value - vlo)``, in int32 when it fits and in int64 up to
+    PACK_LIMIT; two stable sorts, value first, where it does not fit."""
     W = vhi - vlo + 1
     top = (domain + 1) * W
-    if top <= 2**62:
+    if top <= PACK_LIMIT:
         kdt = torch.int32 if top <= 2**31 - 1 else torch.int64
         key, _ = torch.sort(ids.to(kdt) * W + (vals.to(kdt) - vlo))
         return torch.div(key, W, rounding_mode="floor"), _changes(key)

@@ -26,21 +26,38 @@ COPIED = ["names.py", "mtypes.py", "fe/__init__.py", "fe/lexer.py",
           "mplan.py", "vir.py", "passes.py", "engine/columnstore.py",
           "engine/datagen.py", "engine/nativeio.py", "oracle/__init__.py",
           "oracle/tpch.py", "engine/fuse.py", "fe/tree_parser.py", "dot.py",
-          "vdl_emit.py", "explain.py", "engine/tblingest.py"]
-# top-level definitions the port leaves out of a copy, with the reason
-OMITTED = {
-    # it caches stores under a fixed directory in the user's home; the
-    # port reads and writes nothing outside the caller's own paths
-    "engine/datagen.py": {"cached_store"},
+          "vdl_emit.py", "explain.py", "engine/tblingest.py",
+          "oracle/relinterp.py"]
+# definitions a copy rewrites, each with its reason: a top-level name, a
+# method as "Class.method", or an import as "import <module>"; every other
+# definition of the module is compared as it stands
+REWRITTEN = {
+    "oracle/relinterp.py": {
+        "Interp._join": "pandas is not installed where the port runs",
+        "import pandas": "pandas is not installed where the port runs "
+                         "(Interp._join was its one user)",
+    },
+    "engine/datagen.py": {
+        "cached_store": "its default cache directory is a fixed path in "
+                        "the user's home; the port reads and writes "
+                        "nothing outside the caller's own paths, so the "
+                        "copy takes cache_root from its caller (keyword "
+                        "only, no default) and keeps the body",
+    },
+}
+# definitions only the port's copy has, each serving a rewritten one
+ADDED = {
+    # Interp._join's numpy pairing, in pandas' merge order
+    "oracle/relinterp.py": {"equi_join_pairs", "_ascending", "_first_labels",
+                            "_pandas_keys", "_pandas_one_to_one_order"},
 }
 
-
 def _banned(mod: str) -> bool:
-    """jax, or the JAX package itself (not the port, whose name it
-    prefixes)."""
+    """jax, the JAX package itself (not the port, whose name it
+    prefixes), or pandas, which is not installed where the port runs."""
     return (mod == "jax" or mod.startswith("jax.")
-            or mod == "mplan2vdl_tpu" or mod.startswith("mplan2vdl_tpu."))
-
+            or mod == "mplan2vdl_tpu" or mod.startswith("mplan2vdl_tpu.")
+            or mod == "pandas" or mod.startswith("pandas."))
 
 def _port_modules():
     names = ["mplan2vdl_tpu_torch"]
@@ -68,7 +85,7 @@ def test_import_pulls_in_no_jax():
                 "tools.probe_kernels", "cli", "fe.tree_parser", "dot",
                 "vdl_emit", "explain", "engine.tblingest",
                 "parallel.multihost", "parallel.dist", "parallel.shuffle_agg",
-                "parallel.shuffle_join"):
+                "parallel.shuffle_join", "oracle.relinterp"):
         assert f"mplan2vdl_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _banned(m)] == []
 
@@ -83,7 +100,9 @@ def _imports(path):
 
 
 def test_source_scan_finds_no_jax_import():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    # chip_smoke.py imports the census plans on the card
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tests", "torch_census_cases.py")]
     for root, _, fs in os.walk(PORT):
         files += [os.path.join(root, f) for f in fs if f.endswith(".py")]
     assert len(files) > 25
@@ -100,6 +119,8 @@ def test_prefix_rule():
     assert not _banned("mplan2vdl_tpu_torch")
     assert not _banned("mplan2vdl_tpu_torch.engine.lower")
     assert not _banned("jaxtyping")
+    assert _banned("pandas") and _banned("pandas.core.reshape.merge")
+    assert not _banned("pandasql_like")
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -131,12 +152,7 @@ def test_chip_smoke_refuses_without_cuda(monkeypatch, capsys):
     assert '"ok"' not in capsys.readouterr().out
 
 
-def _stripped(path, omit=()):
-    """The module's AST without docstrings (and without ``omit``'s
-    top-level definitions), dumped."""
-    tree = ast.parse(open(path).read(), path)
-    tree.body = [n for n in tree.body
-                 if getattr(n, "name", None) not in omit]
+def _strip_docstrings(tree):
     for node in ast.walk(tree):
         if isinstance(node, (ast.Module, ast.FunctionDef, ast.ClassDef,
                              ast.AsyncFunctionDef)):
@@ -145,14 +161,96 @@ def _stripped(path, omit=()):
                     and isinstance(body[0].value, ast.Constant)
                     and isinstance(body[0].value.value, str)):
                 node.body = body[1:] or [ast.Pass()]
-    return ast.dump(tree)
+    return tree
+
+
+def _name(node) -> str:
+    """A top-level statement's name in REWRITTEN and ADDED."""
+    if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                         ast.ClassDef)):
+        return node.name
+    if isinstance(node, ast.Import):
+        return " ".join("import " + a.name for a in node.names)
+    return ast.dump(node)
+
+
+def _definitions(path):
+    """The module's top-level statements in order, docstrings removed, as
+    (name, AST dump) pairs; a class's methods follow it as
+    ("Class.method", dump) entries, and its own entry holds the rest of
+    its body."""
+    tree = _strip_docstrings(ast.parse(open(path).read(), path))
+    out = []
+    for node in tree.body:
+        if isinstance(node, ast.ClassDef):
+            methods = [b for b in node.body
+                       if isinstance(b, (ast.FunctionDef,
+                                         ast.AsyncFunctionDef))]
+            node.body = [b for b in node.body if b not in methods]
+            out.append((node.name, ast.dump(node)))
+            out += [(f"{node.name}.{m.name}", ast.dump(m)) for m in methods]
+        else:
+            out.append((_name(node), ast.dump(node)))
+    return out
 
 
 @pytest.mark.parametrize("rel", COPIED)
 def test_copy_in_sync_with_jax_module(rel):
-    omit = OMITTED.get(rel, set())
-    got = _stripped(os.path.join(PORT, rel))
-    want = _stripped(os.path.join(JAXPKG, rel), omit)
-    assert got == want, f"{rel} drifted from mplan2vdl_tpu/{rel}"
-    if omit:
-        assert _stripped(os.path.join(JAXPKG, rel)) != want
+    """Definition by definition, at method level inside classes: the copy
+    equals the JAX module but for the definitions REWRITTEN names, and the
+    ones ADDED names, which the JAX module lacks."""
+    rewritten = REWRITTEN.get(rel, {})
+    added = ADDED.get(rel, set())
+    got = _definitions(os.path.join(PORT, rel))
+    want = _definitions(os.path.join(JAXPKG, rel))
+    assert ([d for d in got if d[0] not in rewritten and d[0] not in added]
+            == [d for d in want if d[0] not in rewritten]), \
+        f"{rel} drifted from mplan2vdl_tpu/{rel}"
+    # each exemption names a definition that is really rewritten or added
+    want_names = dict(want)
+    for name in rewritten:
+        assert name in want_names, name
+        assert dict(got).get(name) != want_names[name], name
+    for name in added:
+        assert name in dict(got) and name not in want_names, name
+
+
+def test_cached_store_rewrites_only_its_signature():
+    """datagen.cached_store: the body is the JAX one; the cache directory
+    has no default."""
+    import inspect
+
+    from mplan2vdl_tpu.engine import datagen as jdatagen
+    from mplan2vdl_tpu_torch.engine import datagen as tdatagen
+
+    def body(fn):
+        tree = _strip_docstrings(ast.parse(
+            inspect.cleandoc("\n" + inspect.getsource(fn))))
+        return [ast.dump(n) for n in tree.body[0].body]
+
+    assert body(tdatagen.cached_store) == body(jdatagen.cached_store)
+    sig = inspect.signature(tdatagen.cached_store)
+    assert sig.parameters["cache_root"].default is inspect.Parameter.empty
+    assert (sig.parameters["cache_root"].kind
+            is inspect.Parameter.KEYWORD_ONLY)
+
+
+def test_cached_store_round_trip(tmp_path):
+    """The copy's cache: a missing directory is generated and saved, a
+    saved one is loaded, a corrupt one is generated again."""
+    import numpy as np
+
+    from mplan2vdl_tpu_torch.engine import datagen
+
+    root = str(tmp_path)
+    a = datagen.cached_store(0.001, seed=3, cache_root=root)
+    cache = os.path.join(root, "mplan2vdl_store_sf0.001_seed3")
+    assert os.path.isdir(cache)
+    b = datagen.cached_store(0.001, seed=3, cache_root=root)
+    key = ("lineitem", "l_orderkey")
+    assert np.array_equal(a.columns[key], b.columns[key])
+    # a half-written column: shorter than the manifest says
+    with open(os.path.join(cache, "lineitem.l_orderkey.bin"), "wb") as f:
+        f.write(b"\0" * 8)
+    c = datagen.cached_store(0.001, seed=3, cache_root=root)
+    assert np.array_equal(a.columns[key], c.columns[key])

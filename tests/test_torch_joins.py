@@ -40,6 +40,7 @@ from mplan2vdl_tpu_torch import vir as tV
 from mplan2vdl_tpu_torch.engine import datagen as tdatagen
 from mplan2vdl_tpu_torch.engine import lower as tlower
 from mplan2vdl_tpu_torch.mtypes import DDecimal as tDDecimal
+from torch_census_cases import CORNERS, corner
 
 SF = 0.01
 SEEDS = (7, 11)
@@ -78,73 +79,10 @@ def _both(stores, seed, text, cfg_change=None):
 
 
 # ------------------------------------------------------------ corner plans
-def _corner(M, DDecimal, which):
-    """The plan ``which`` built with one engine's ``mplan`` module."""
-    def scan(tab, cols, aliases=None):
-        aliases = aliases or {}
-        return M.RTable(tablename=(tab,), tablecolumns=tuple(
-            ((tab, c), aliases.get(c)) for c in cols))
-
-    def lit(v):
-        return M.MLiteral(DDecimal(0), int(v))
-
-    def eq(a, b):
-        return (M.MBinop(M.EQ, M.MRef(a), M.MRef(b)),)
-
-    def lt(a, v):
-        return M.MBinop(M.LT, M.MRef(a), lit(v))
-
-    if which == "antijoin_dim_side":
-        li = M.RSelect(child=scan("lineitem", ["l_orderkey", "l_quantity"]),
-                       predicate=lt(("lineitem", "l_quantity"), 500))
-        return M.RJoin(leftch=scan("orders", ["o_orderkey", "o_custkey"]),
-                       rightch=li, conds=eq(("orders", "o_orderkey"),
-                                            ("lineitem", "l_orderkey")),
-                       joinvariant=M.LEFTANTI)
-    if which == "left_outer_fk":
-        od = M.RSelect(child=scan("orders", ["o_orderkey", "o_custkey"]),
-                       predicate=lt(("orders", "o_custkey"), 200))
-        return M.RJoin(leftch=scan("lineitem", ["l_orderkey",
-                                                "l_linenumber"]),
-                       rightch=od, conds=eq(("lineitem", "l_orderkey"),
-                                            ("orders", "o_orderkey")),
-                       joinvariant=M.LEFTOUTER)
-    if which == "self_join_filtered":
-        left = M.RSelect(child=scan("orders", ["o_orderkey", "o_custkey"]),
-                         predicate=lt(("orders", "o_custkey"), 400))
-        right = M.RSelect(
-            child=scan("orders", ["o_orderkey", "o_totalprice"],
-                       aliases={"o_orderkey": ("O2", "o_orderkey"),
-                                "o_totalprice": ("O2", "o_totalprice")}),
-            predicate=M.MBinop(M.GT, M.MRef(("O2", "o_totalprice")),
-                               lit(1000)))
-        return M.RJoin(leftch=left, rightch=right,
-                       conds=eq(("orders", "o_orderkey"),
-                                ("O2", "o_orderkey")),
-                       joinvariant=M.PLAIN)
-    # customers against suppliers of their nation: no FK pair, so the
-    # semi and inner joins take the general equijoin
-    sup = M.RSelect(child=scan("supplier", ["s_suppkey", "s_nationkey",
-                                            "s_acctbal"]),
-                    predicate=lt(("supplier", "s_acctbal"), 100000))
-    return M.RJoin(leftch=scan("customer", ["c_custkey", "c_nationkey"]),
-                   rightch=sup, conds=eq(("customer", "c_nationkey"),
-                                         ("supplier", "s_nationkey")),
-                   joinvariant={"semi_nonfk": M.LEFTSEMI,
-                                "inner_nonfk": M.PLAIN}[which])
-
-
-CORNERS = {"antijoin_dim_side": {"anti"},
-           "left_outer_fk": {"outer_left", "outer_right", "outer_valid"},
-           "self_join_filtered": {"left", "right"},
-           "semi_nonfk": {"semi"},
-           "inner_nonfk": {"left", "right"}}
-
-
 def _run_corner(stores, seed, which):
     ts, tcfg, js, jcfg = stores[seed]
-    tplan = _corner(tM, tDDecimal, which)
-    jplan = _corner(jM, jDDecimal, which)
+    tplan = corner(tM, tDDecimal, which)
+    jplan = corner(jM, jDDecimal, which)
     tq = tlower.CompiledQuery(
         tcfg, tpasses.engine_passes(tV.vexps_from_mplan(tplan, tcfg)), ts,
         device="cpu")

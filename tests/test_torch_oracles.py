@@ -264,3 +264,61 @@ def test_q16_oracle_matches_sqlite_and_port(store_db):
     # the order: supplier count descending, then the codes ascending
     order = np.lexsort((size, ptype, brand, -np.asarray(cnt, np.int64)))
     assert np.array_equal(order, np.arange(len(order)))
+
+
+# ---------------- the plans of the paths no CLI plan reaches at SF10
+def test_dense_join_oracle_matches_sqlite(store_db):
+    """Each lineitem row against its ship day's average quantity (integer
+    sum / count at two decimal digits)."""
+    store, db = store_db
+    cols = chip_smoke.oracle_dense_join(store)
+    got = sorted(zip(*[np.asarray(c, np.int64).tolist() for c in cols]))
+    want = sorted(tuple(r) for r in db.execute("""
+        WITH t AS MATERIALIZED (
+            SELECT l_shipdate AS d, SUM(l_quantity) / COUNT(*) AS a
+            FROM lineitem GROUP BY l_shipdate)
+        SELECT l.l_returnflag, COUNT(*), SUM(l.l_extendedprice)
+        FROM lineitem AS l CROSS JOIN t  -- lineitem outer: t is indexed
+        WHERE l.l_shipdate = t.d AND l.l_quantity > t.a
+        GROUP BY l.l_returnflag
+    """))
+    assert len(got) > 1 and got == want
+
+
+def test_distinct_dense_oracle_matches_sqlite(store_db):
+    store, db = store_db
+    cols = chip_smoke.oracle_distinct_dense(store)
+    got = sorted(zip(*[np.asarray(c, np.int64).tolist() for c in cols]))
+    want = sorted(tuple(r) for r in db.execute("""
+        SELECT l_returnflag, l_linestatus, COUNT(DISTINCT l_partkey)
+        FROM lineitem GROUP BY l_returnflag, l_linestatus
+    """))
+    assert len(got) > 1 and got == want
+
+
+def test_distinct_wide_oracle_matches_sqlite(store_db):
+    store, db = store_db
+    cols = chip_smoke.oracle_distinct_wide(store)
+    got = sorted(zip(*[np.asarray(c, np.int64).tolist() for c in cols]))
+    want = sorted(tuple(r) for r in db.execute("""
+        SELECT l_orderkey, l_partkey, COUNT(DISTINCT l_extendedprice)
+        FROM lineitem
+        WHERE l_shipdate >= '1995-06-01' AND l_shipdate < '1995-07-01'
+        GROUP BY l_orderkey, l_partkey
+    """))
+    assert len(got) > 100 and got == want
+
+
+def test_q4_all_oracle_matches_sqlite_and_port(store_db):
+    store, db = store_db
+    prio, count = chip_smoke.oracle_q4_all(store)
+    got = sorted(zip(_decode(store, "orders", "o_orderpriority", prio),
+                     np.asarray(count, np.int64).tolist()))
+    want = sorted(tuple(r) for r in db.execute("""
+        SELECT o_orderpriority, COUNT(*) FROM orders
+        WHERE EXISTS (SELECT * FROM lineitem WHERE l_orderkey = o_orderkey
+                      AND l_commitdate < l_receiptdate)
+        GROUP BY o_orderpriority
+    """))
+    assert len(got) > 1 and got == want
+    assert _in_order(_port_run(store, chip_smoke.PLAN_Q4_ALL), [prio, count])

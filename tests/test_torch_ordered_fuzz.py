@@ -1,17 +1,15 @@
 """Ordered fuzz plans: the port against the JAX engine on the CPU, row for
 row in order.
 
-Each plan is one of tests/test_fuzz.py's random plans (``rand_plan`` of
-tests/test_torch_corpus.py, built with each package's own ``mplan``),
-ordered by every output in random directions, so that the order is total,
-and cut by a top N for odd seeds.
+Each plan is one of tests/test_fuzz.py's random plans, built with each
+package's own ``mplan``, ordered by every output in random directions, so
+that the order is total, and cut by a top N for odd seeds
+(``torch_census_cases.ordered_rand_plan``).
 """
-
-import random
 
 import pytest
 
-from test_torch_corpus import ENGINES, rand_plan
+from test_torch_corpus import ENGINES
 from test_torch_ordered import _cols, _equal, _sorted_by
 from mplan2vdl_tpu import passes as jpasses
 from mplan2vdl_tpu import vir as jV
@@ -21,21 +19,7 @@ from mplan2vdl_tpu_torch import passes as tpasses
 from mplan2vdl_tpu_torch import vir as tV
 from mplan2vdl_tpu_torch.engine import datagen as tdatagen
 from mplan2vdl_tpu_torch.engine import lower as tlower
-
-
-def ordered_rand_plan(M, DDecimal, seed):
-    """test_fuzz's plan of ``seed`` ordered by every output in random
-    directions, cut by a top N for odd seeds."""
-    rng = random.Random(seed)
-    gb = rand_plan(M, DDecimal, rng)
-    names = [nm for _, nm in gb.outputaggs]
-    proj = M.RProject(child=gb,
-                      projectout=tuple((M.MRef(nm), nm) for nm in names),
-                      order=tuple((nm, rng.choice(["asc", "desc"]))
-                                  for nm in names))
-    if seed % 2:
-        return M.RTopN(child=proj, n=rng.randint(1, 12))
-    return proj
+from torch_census_cases import ordered_rand_plan
 
 
 @pytest.fixture(scope="module")
