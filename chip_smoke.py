@@ -22,8 +22,14 @@ Phases (any failure ends the run with a nonzero exit; nothing is caught):
      no valid row, L = 0, and a few rows into just over 2^31 slots; the
      digit rank at every width from 1 to 8 bits over random, all-equal,
      ascending and alternating keys and keys whose digit changes at each
-     warp's run), and times kernel, plain version and library yardstick
-     with CUDA events (the scatter at 2%, 15% and 100%);
+     warp's run; the gather over both dtype groups full and mixed, a
+     split into two launches, 1, 3 and 5 rows and a ragged last tile,
+     position and source views off any alignment, consecutive positions,
+     a random permutation, valid = 0 on the host and on the device, and a
+     one-row source), and times kernel, plain version and library
+     yardstick with CUDA events (the scatter at 2%, 15% and 100%; the
+     gather at the engine's shapes (a)-(f) of tools/bench_gather.py, with
+     the bytes counted in 32-byte sectors beside the byte bound);
   4. drives the port end to end through ``plan_to_vexps`` +
      ``CompiledQuery`` on ``cuda``: TPC-H Q6, Q1 (fused by the automatic
      gate, with its sums on the tensor cores by MPLAN2VDL_MXU_AGG=1, and
@@ -51,8 +57,11 @@ Phases (any failure ends the run with a nonzero exit; nothing is caught):
      the compaction, the gather and the scatter); the shape of each engine
      scatter is printed, Q4's repeated-position scatter with its count of
      distinct positions, and each equijoin's side, path (dense or merge),
-     sizes and host syncs; ``--profile`` adds each engine kernel's device
-     time per query;
+     sizes and host syncs; a ``{"gather_census": ...}`` line groups every
+     gather.cu launch by k, dtypes, m, n and the order of its positions;
+     ``--profile`` adds each engine kernel's device time per query (the
+     device total counts kernels only, not the launch ranges' device-side
+     spans) and each census class's device time;
   5. the probes: ``tools.probe_kernels`` (every pattern probe OK, each
      kernel equal to its plain version, timed) and ``tools.probe_radix``
      at its default sizes and the lineitem row count rounded up to a
@@ -1199,6 +1208,22 @@ KERNEL_FUNCTIONS = {"compact": ("compact_kernel",),
                     "multiagg_mxu": ("mxu_kernel", "fast_kernel")}
 
 
+# Itanium-mangled template argument types of the kernels
+MANGLED_TYPES = {"i": "int", "x": "long long", "l": "long", "j": "unsigned",
+                 "h": "unsigned char", "b": "bool"}
+
+
+def _template_args(mangled: str) -> str:
+    """``Li2ELi1Ei`` -> ``2,1,int``: the template arguments of a mangled
+    kernel name (integer and bool literals, builtin types)."""
+    import re
+
+    args = []
+    for lit, ty in re.findall(r"L[ib](\d+)E|([a-z])", mangled):
+        args.append(lit if lit else MANGLED_TYPES.get(ty, ty))
+    return ",".join(args)
+
+
 def _engine_kernel(key: str):
     """The engine kernel whose CUDA function a profiler entry names, or
     None."""
@@ -1214,6 +1239,24 @@ def _dev_us(e) -> float:
     """Device microseconds of a torch.profiler key-average entry."""
     return getattr(e, "self_device_time_total",
                    getattr(e, "self_cuda_time_total", 0))
+
+
+def gather_shape(srcs, pos):
+    """(k, source dtypes, position dtype, m, n) of a gather."""
+    return (len(srcs), "/".join(str(s.dtype)[6:] for s in srcs),
+            str(pos.dtype)[6:], pos.shape[0], srcs[0].shape[0])
+
+
+def gather_class(srcs, pos, valid):
+    """The census class of a gather: its ``gather_shape`` and the order of
+    the valid positions (consecutive, ascending or unordered).  Reads the
+    positions back to the host."""
+    m = pos.shape[0]
+    v = max(min(int(valid), m), 0)
+    d = pos[1:v].long() - pos[:max(v - 1, 0)].long()
+    order = ("consecutive" if bool((d == 1).all())
+             else "ascending" if bool((d >= 0).all()) else "unordered")
+    return gather_shape(srcs, pos) + (order,)
 
 
 class Smoke:
@@ -1316,9 +1359,9 @@ class Smoke:
             fn = ""  # the kernel ptxas reports on, as name<template args>
             for ln in out.splitlines():
                 m = re.search(r"entry function '[^']*?\d([a-z][a-z_]*_kernel)"
-                              r"(?:ILi(\d+)E)?", ln)
+                              r"(?:I((?:L[ib]\d+E|[a-z])+)E)?", ln)
                 if m:
-                    fn = m[1] + (f"<{m[2]}>" if m[2] else "")
+                    fn = m[1] + (f"<{_template_args(m[2])}>" if m[2] else "")
                 if "Used" in ln or "spill" in ln:
                     print(f"ptxas {src} {fn}: {ln.strip()}", flush=True)
         print(json.dumps({"build_s": secs}), flush=True)
@@ -1442,6 +1485,9 @@ class Smoke:
                              timed_launches)
 
         # ---- gather
+        from mplan2vdl_tpu_torch.engine.kernels import _lib
+        from mplan2vdl_tpu_torch.tools import bench_gather
+
         pos = compact.compact_positions(m159, c159)
         names = ["l_orderkey", "l_quantity", "l_extendedprice", "l_discount"]
         srcs = [self.col(c) for c in names]
@@ -1468,31 +1514,72 @@ class Smoke:
         dup = torch.repeat_interleave(pos[: c159 // 2], 2)
         g_case("duplicate positions", srcs, dup, dup.shape[0])
         g_case("int64 positions", srcs, pos.to(torch.int64), c159)
+        # the kernel's paths: each dtype group full, both groups in one
+        # launch, tiny m and a ragged last tile, position and source views
+        # off any alignment, consecutive runs, a permutation, the tail
+        # repeat from row 0, a one-row source
+        wides = [wide + j for j in range(8)]
+        g_case("k=8 int64", wides, pos, c159)
+        g_case("k=9 int64 (two launches)", wides + [wide], pos, c159)
+        g_case("k=8 mixed 4 int32 + 4 int64", srcs + wides[:4], pos, c159)
+        for m in (1, 3, 5):
+            g_case(f"m={m}", [srcs[0], wide], pos[:m], m)
+        ragged = max(c159 // 1024 * 1024 - 347, 1)
+        g_case(f"m={ragged} (a ragged last tile)", [srcs[0], wide],
+               pos[:ragged], ragged)
+        for off in (1, 2, 3):
+            g_case(f"pos[{off}:] int32 view", [srcs[0], wide], pos[off:],
+                   c159 - off)
+        g_case("pos[1:] int64 view", [srcs[0], wide], pos.to(torch.int64)[1:],
+               c159 - 1)
+        g_case("source views [1:] (unaligned)", [srcs[0][1:], wide[1:]], pos,
+               c159)
+        ident = torch.arange(n, dtype=torch.int32, device=self.dev)
+        g_case("identity positions k=3 int64/int64/int32", [wide, wides[1],
+                                                            srcs[1]], ident, n)
+        g_case("identity positions from 1 (a view)", [wide, srcs[1]],
+               ident[1:], n - 1)
+        g_case("identity positions, source views [1:]", [srcs[1][1:],
+                                                         wide[1:]],
+               ident[:n - 1], n - 1)
+        gen = torch.Generator(device=self.dev).manual_seed(self.args.seed + 5)
+        perm = torch.randperm(n, generator=gen, device=self.dev).to(
+            torch.int32)
+        g_case("random permutation", [srcs[0], wide], perm, n)
+        g_case("valid=0, host", [srcs[0], wide], pos, 0)
+        g_case("valid=0, device", [srcs[0], wide], pos,
+               torch.tensor(0, device=self.dev))
+        g_case("n=1", [srcs[0][:1], wide[:1]], pos, c159)
+        del tail, dup, wides, ident, perm
 
-        sg.launches = 0
-        ms = self.cuda_ms(lambda: sg.gather_many(srcs, pos, c159), reps)
-        timed_launches = sg.launches
-        plain_ms = self.cuda_ms(
-            lambda: sg.gather_many_plain(srcs, pos, c159), reps)
-        posl = pos.long()
-        lib_ms = self.cuda_ms(
-            lambda: [torch.index_select(s, 0, posl) for s in srcs], reps)
-        nbytes = 4 * c159 + sum(2 * s.element_size() * c159 for s in srcs)
-        self.kernel_time("gather", f"k=4 int32[{n}] at int32[{c159}] "
-                         "ascending positions", ms, plain_ms, lib_ms,
-                         _bound_ms(nbytes), timed_launches)
-        # the k = 1 call (sorted_gather, the JAX package's single-source
-        # kernel), timed on its own
-        src = srcs[0]
-        sg.launches = 0
-        ms = self.cuda_ms(lambda: sg.sorted_gather(src, pos, c159), reps)
-        timed_launches = sg.launches
-        plain_ms = self.cuda_ms(
-            lambda: sg.gather_many_plain([src], pos, c159), reps)
-        lib_ms = self.cuda_ms(lambda: torch.index_select(src, 0, posl), reps)
-        self.kernel_time("gather k=1", f"k=1 int32[{n}] at int32[{c159}] "
-                         "ascending positions", ms, plain_ms, lib_ms,
-                         _bound_ms(4 * c159 + 2 * 4 * c159), timed_launches)
+        # the engine's shapes (a)-(f) (bench_gather.shapes): the kernel, its
+        # plain version, torch.index_select, the byte bound and the bytes
+        # counted in 32-byte sectors; (b) and (a) keep their names of
+        # earlier runs
+        cols = {c: self.col(c) for c in bench_gather.COLUMNS}
+        rename = {"a": "gather k=1", "b": "gather"}
+        for sh in bench_gather.shapes(cols, self.args.seed):
+            ss, p, valid = sh.build()
+            g_case(f"({sh.tag}) {sh.what}", ss, p, valid)
+            sg.launches = 0
+            ms = self.cuda_ms(lambda: sg.gather_many(ss, p, valid), reps)
+            timed_launches = sg.launches
+            plain_ms = self.cuda_ms(
+                lambda: sg.gather_many_plain(ss, p, valid), reps)
+            posl = p.long()
+            lib_ms = self.cuda_ms(
+                lambda: [torch.index_select(s, 0, posl) for s in ss], reps)
+            self.kernel_time(
+                rename.get(sh.tag, f"gather ({sh.tag})"),
+                f"({sh.tag}) {sh.what}: k={len(ss)} "
+                f"{'/'.join(str(s.dtype)[6:] for s in ss)}[{ss[0].shape[0]}] "
+                f"at {str(p.dtype)[6:]}[{p.shape[0]}]", ms, plain_ms, lib_ms,
+                _bound_ms(bench_gather.byte_count(ss, p)), timed_launches,
+                sector_ms=_bound_ms(
+                    bench_gather.sector_count(ss, p, valid)),
+                blocks_per_sm=bench_gather.blocks_per_sm(_lib.lib(), ss, p))
+            del ss, p, posl
+        del cols
 
         # ---- fused aggregate
         from mplan2vdl_tpu_torch.engine.lower import CompiledQuery, \
@@ -1911,10 +1998,10 @@ class Smoke:
                          lib_ms, _bound_ms(nbytes), timed_launches)
 
     def kernel_time(self, name, shape, ms, plain_ms, lib_ms, bound_ms,
-                    launches):
+                    launches, **extra):
         rec = {"kernel": name, "shape": shape, "ms": ms,
                "plain_ms": plain_ms, "library_ms": lib_ms,
-               "bound_ms": bound_ms, "launches": launches,
+               "bound_ms": bound_ms, "launches": launches, **extra,
                "card": self.smi}
         self.timed[name] = rec
         self.records["kernel_times"].append(rec)
@@ -2021,8 +2108,10 @@ class Smoke:
 
         from mplan2vdl_tpu_torch.engine import lower
         from mplan2vdl_tpu_torch.engine.kernels import scatter
+        from mplan2vdl_tpu_torch.engine.kernels import sorted_gather as sg
         from mplan2vdl_tpu_torch.engine.lower import CompiledQuery, \
             fused_agg_on, plan_to_vexps
+        from mplan2vdl_tpu_torch.tools import bench_gather
 
         counters = {
             k: (importlib.import_module(
@@ -2137,6 +2226,35 @@ class Smoke:
                 return sort_pairs(ids, vals, domain, vlo, vhi)
             return dense, distinct, pairs
 
+        # the census of gather.cu's launches over each query's first run:
+        # classes by k, source and position dtypes, m, n and the order of
+        # the valid positions; each run's sequence of classes names its
+        # calls under the profiler
+        census, census_seq = {}, {}
+        gather_many = lower.gather_many
+
+        def record_gathers(query):
+            seq = census_seq.setdefault(query, [])
+
+            def call(srcs, pos, valid, small=False):
+                if small:
+                    return gather_many(srcs, pos, valid, small=small)
+                key = gather_class(srcs, pos, valid)
+                before = sg.launches
+                out = gather_many(srcs, pos, valid, small=small)
+                rec = census.setdefault(key, {
+                    "k": key[0], "srcs": key[1], "pos": key[2], "m": key[3],
+                    "n": key[4], "order": key[5], "calls": 0, "launches": 0,
+                    "bound_ms": _bound_ms(bench_gather.byte_count(srcs, pos)),
+                    "queries": []})
+                rec["calls"] += 1
+                rec["launches"] += sg.launches - before
+                if query not in rec["queries"]:
+                    rec["queries"].append(query)
+                seq.append(key)
+                return out
+            return call
+
         for name, plan, fused, check, must in runs:
             if fused is None:
                 os.environ.pop("MPLAN2VDL_FUSED_AGG", None)
@@ -2157,9 +2275,11 @@ class Smoke:
             lower.repeat_scatter = record_repeat(name)
             (lower.Compiler._dense_join, lower.Compiler._eval_fold_distinct,
              lower._sort_pairs) = record_paths(name)
+            lower.gather_many = record_gathers(name)
             try:
                 res = cq()
             finally:
+                lower.gather_many = gather_many
                 lower.monotone_scatter = scatter.monotone_scatter
                 lower.repeat_scatter = repeat_scatter
                 lower.Compiler._dense_join = dense_join
@@ -2225,12 +2345,19 @@ class Smoke:
                    "repeat_scatters": repeats.get(name, []),
                    "paths": paths[name], "card": self.smi}
             if self.args.profile:
-                rec["profile"] = self.profile(name, cq)
+                index = {k: i for i, k in enumerate(census)}
+                rec["profile"] = self.profile(
+                    name, cq, [(index[k], k) for k in census_seq[name]])
+                for i, (c, t) in rec["profile"]["gather_classes"].items():
+                    if i >= 0:
+                        cls = census[list(census)[i]]
+                        cls["device_ms"] = cls.get("device_ms", 0.0) + t
             self.records["queries"].append(rec)
             print(json.dumps(rec), flush=True)
             os.environ.pop("MPLAN2VDL_MXU_AGG", None)
             del cq
         self.launches = total
+        self.gather_census(census)
         self.records["engine_scatters"] = scatters
         self.records["repeat_scatters"] = repeats
         print(json.dumps({"engine_scatters": scatters}), flush=True)
@@ -2251,6 +2378,32 @@ class Smoke:
             raise AssertionError(f"the general-join runs launched no {idle}")
         print(json.dumps({"main_path_launches": total,
                           "general_join_launches": join_total}), flush=True)
+
+    def gather_census(self, census):
+        """Prints the ``{"gather_census": ...}`` line: every class of
+        gather.cu launches of the phase's first runs, largest byte total
+        first, with the device ms the profiler gave each class (under
+        ``--profile``) beside the gather kernels' device ms of the same
+        profiles."""
+        classes = sorted(census.values(), reverse=True,
+                         key=lambda c: c["bound_ms"] * c["calls"])
+        line = {"gather_census": classes,
+                "calls": sum(c["calls"] for c in classes),
+                "launches": sum(c["launches"] for c in classes)}
+        if self.args.profile:
+            line["device_ms"] = sum(c.get("device_ms", 0.0) for c in classes)
+            line["profile_gather_ms"] = sum(
+                q["profile"]["kernels"].get("gather", (0, 0.0))[1]
+                for q in self.records["queries"])
+            # the classes' ranges hold every gather kernel the profiles saw
+            if abs(line["device_ms"] - line["profile_gather_ms"]) > 1e-6 * (
+                    1 + line["profile_gather_ms"]):
+                raise AssertionError(
+                    f"the gather census's classes hold {line['device_ms']} "
+                    f"device ms, the profiles' gather kernels "
+                    f"{line['profile_gather_ms']}")
+        self.records["gather_census"] = line
+        print(json.dumps(line), flush=True)
 
     def check_path(self, name, rec, joins, repeats):
         """The run of a path no CLI plan reaches at SF10 must take it, as
@@ -2955,34 +3108,83 @@ class Smoke:
         if idle:
             raise AssertionError(f"the census launched no {idle} kernel")
 
-    def profile(self, name, cq):
+    def profile(self, name, cq, gather_calls=None):
         """One warm call under torch.profiler: device (kernel) time beside
         the host wall time, and the ops that own the most device time.
         The engine kernels' launch counters and launch ranges (``m2v_*``)
         are read around the same call, and a launch the profiler holds no
-        kernel record of is printed as a ``profile_lost`` line."""
+        kernel record of is printed as a ``profile_lost`` line.  Given
+        ``gather_calls``, [(index, class)] of the first run's gather.cu
+        calls, the i-th call runs in a range named after the index of
+        ``gather_calls[i]`` and must have that class's shape, the warm call
+        must make as many, and each class's device time is returned."""
         import importlib
 
         from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        from mplan2vdl_tpu_torch.engine import lower
+        from mplan2vdl_tpu_torch.engine.kernels import _lib
 
         counters = {k: (importlib.import_module(
             f"mplan2vdl_tpu_torch.engine.kernels.{mod}"), attr)
             for k, (mod, attr) in COUNTERS.items()}
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
+        gather_many, tagged = lower.gather_many, []
+        call = _lib.call
+
+        def named(srcs, pos, valid, small=False):
+            if small:
+                return gather_many(srcs, pos, valid, small=small)
+            i = len(tagged)
+            if i >= len(gather_calls) or gather_calls[i][1][:5] != \
+                    gather_shape(srcs, pos):
+                raise AssertionError(
+                    f"{name}: the profiled call's gather {i} "
+                    f"{gather_shape(srcs, pos)} is not the first run's")
+            tagged.append(i)
+            tag = f"gather_class {gather_calls[i][0]}"
+
+            def in_range(entry, *a):  # the launch's range, named by class
+                with record_function(tag):
+                    return getattr(_lib.lib(), entry)(*a)
+            _lib.call = in_range
+            try:
+                return gather_many(srcs, pos, valid, small=small)
+            finally:
+                _lib.call = call
+
         act = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-        with profile(activities=act) as prof:
-            t0 = time.perf_counter()
-            cq.run()
-            self.sync()
-            wall = (time.perf_counter() - t0) * 1e3
+        if gather_calls is not None:
+            lower.gather_many = named
+        try:
+            with profile(activities=act) as prof:
+                t0 = time.perf_counter()
+                cq.run()
+                self.sync()
+                wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            lower.gather_many = gather_many
+        if gather_calls is not None and len(tagged) != len(gather_calls):
+            raise AssertionError(f"{name}: the profiled call made "
+                                 f"{len(tagged)} gathers, the first run "
+                                 f"{len(gather_calls)}")
         avg = prof.key_averages()
 
         dev_us = _dev_us
-        # kernels are the CUDA-type entries; the CPU-side ops that launched
-        # them carry the same device time, so they name the top spenders
-        cuda = [e for e in avg if e.device_type == DeviceType.CUDA]
+        # kernels are the CUDA-type entries other than the device-side
+        # spans of the launch ranges (m2v_*, gather_class *), which repeat
+        # their kernels' time; the CPU-side ops that launched them carry
+        # the same device time, so they name the top spenders
+        def span(e):
+            return getattr(e, "is_user_annotation", False) or e.key.startswith(
+                ("m2v_", "gather_class "))
+
+        cuda = [e for e in avg
+                if e.device_type == DeviceType.CUDA and not span(e)]
+        spans = [e for e in avg
+                 if e.device_type == DeviceType.CUDA and span(e)]
         device = sum(dev_us(e) for e in cuda) / 1e3
         ops = [e for e in avg if e.device_type == DeviceType.CPU]
         top = sorted(ops, key=dev_us, reverse=True)[:8]
@@ -2997,6 +3199,10 @@ class Smoke:
                     for k, (mod, attr) in counters.items()
                     if getattr(mod, attr)}
         ranges = {e.key: e.count for e in ops if e.key.startswith("m2v_")}
+        # each census class's launches: [count, device ms of the range's
+        # device-side span]
+        per_class = {int(e.key.split()[1]): (e.count, dev_us(e) / 1e3)
+                     for e in spans if e.key.startswith("gather_class ")}
         lost = {k: n - kernels.get(k, (0, 0.0))[0]
                 for k, n in launched.items()
                 if kernels.get(k, (0, 0.0))[0] < n}
@@ -3013,6 +3219,7 @@ class Smoke:
                 "busy_share": device / wall,
                 "kernels": {k: list(v) for k, v in kernels.items()},
                 "launched": launched, "ranges": ranges, "lost": lost,
+                "gather_classes": per_class,
                 "top": [[e.key, e.count, dev_us(e) / 1e3] for e in top]}
 
     def bound_by(self, name):

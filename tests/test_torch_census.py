@@ -183,6 +183,53 @@ def test_chip_smoke_query_phase_on_cpu(monkeypatch, capsys):
         "key_bits"] > 40
     rs = paths[chip_smoke.Q4_ALL_RUN]["repeat_scatters"]
     assert rs[0]["n"] > s.n // 2 > rs[0]["distinct"]
+    # the gather census sees every gather.cu launch of the runs, in
+    # classes of each order
+    census = json.loads(next(ln for ln in out
+                             if ln.startswith('{"gather_census": ')))
+    total = json.loads(next(ln for ln in out
+                            if ln.startswith('{"main_path_launches": ')))
+    assert census["launches"] == total["main_path_launches"]["gather"] > 0
+    assert sum(c["launches"] for c in census["gather_census"]) == census[
+        "launches"]
+    assert {c["order"] for c in census["gather_census"]} == {
+        "consecutive", "ascending", "unordered"}
+
+
+def test_profile_names_each_gather_by_the_first_runs_class(
+        monkeypatch, tmp_path):
+    """Under ``--profile`` each gather of the warm call is charged to the
+    census class of the first run's gather in its place: a call of
+    another shape there, or a different number of calls, fails."""
+    _count_launches(monkeypatch)
+    s = _smoke(0.01)
+    s.args.profile = str(tmp_path)
+    s.st = datagen.generate(sf=0.01, seed=1)
+    cfg = s.st.make_catalog()
+    cq = lower.CompiledQuery(cfg, lower.plan_to_vexps(chip_smoke.PLAN_Q3,
+                                                      cfg), s.st,
+                             device="cpu")
+    first, gather_many = [], lower.gather_many
+
+    def spy(srcs, pos, valid, small=False):
+        if not small:
+            first.append(chip_smoke.gather_class(srcs, pos, valid))
+        return gather_many(srcs, pos, valid, small=small)
+
+    monkeypatch.setattr(lower, "gather_many", spy)
+    cq.run()
+    monkeypatch.setattr(lower, "gather_many", gather_many)
+    assert first
+    calls = list(enumerate(first))
+    rec = s.profile("Q3", cq, calls)
+    assert lower.gather_many is gather_many and rec["gather_classes"] == {}
+    swapped = list(calls)
+    swapped[0] = (0, (9,) + first[0][1:])
+    with pytest.raises(AssertionError, match="gather 0 .* is not the first"):
+        s.profile("Q3", cq, swapped)
+    with pytest.raises(AssertionError, match="made .* gathers, the first"):
+        s.profile("Q3", cq, calls + [calls[-1]])
+    assert lower.gather_many is gather_many
 
 
 def test_query_phase_refuses_a_path_not_taken():

@@ -143,29 +143,211 @@ def _gather_cases():
             rng.integers(0, 100, n).astype(np.int32)]
     pos = np.sort(rng.choice(n, n // 3, replace=False)).astype(np.int32)
     out.append(("many-mixed", srcs, pos, 9000))
+    # the redesigned kernel's paths: both dtype groups, a split into two
+    # launches, row counts around V = 4, unaligned position views,
+    # consecutive runs, any order, the tail repeat from row 0, n = 1
+    rng = np.random.default_rng(9)
+    n = 12_000
+    i64 = [rng.integers(-(1 << 62), 1 << 62, n) for _ in range(8)]
+    i32 = [rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32)
+           for _ in range(4)]
+    asc = np.sort(rng.choice(n, n // 6, replace=False)).astype(np.int32)
+    out.append(("k8-int64", i64, asc, None))
+    out.append(("k9-split", i64 + i32[:1], asc, 1500))
+    out.append(("k8-4int32-4int64", i32 + i64[:4], asc, None))
+    for m in (1, 3, 5):
+        out.append((f"m{m}", [i32[0], i64[0]], asc[:m], None))
+    out.append(("m-ragged", [i32[0], i64[0]], asc[:4 * 101 + 3], None))
+    for off in (1, 2, 3):
+        out.append((f"pos-view{off}", [i32[1], i64[1]], asc[off:], None))
+    out.append(("pos-view1-int64", [i32[1], i64[1]],
+                asc.astype(np.int64)[1:], None))
+    ident = np.arange(n, dtype=np.int32)
+    out.append(("identity-expansion", [i64[2], i64[3], i32[2]], ident, None))
+    out.append(("identity-plus-one", [i32[2], i64[2]], ident[1:], None))
+    out.append(("random-permutation", [i32[3], i64[4]],
+                rng.permutation(n).astype(np.int32), None))
+    out.append(("random-permutation-k1", [i64[5]],
+                rng.permutation(n).astype(np.int32), None))
+    out.append(("valid0-host", [i32[0], i64[0]], asc, 0))
+    out.append(("valid0-device", [i32[0], i64[0]], asc, np.array(0)))
+    out.append(("n1", [i32[0][:1], i64[0][:1]],
+                rng.integers(-3, 4, 77).astype(np.int32), None))
     return out
+
+
+def _np_gather(srcs, pos, valid):
+    """numpy statement of the contract: ``_prep_pos`` (the tail repeats
+    the last valid position, positions clip into the source), then
+    ``src[p]`` for each source."""
+    m, n = len(pos), len(srcs[0])
+    p = np.where(np.arange(m) < valid, pos,
+                 pos[min(max(int(valid) - 1, 0), m - 1)])
+    p = np.clip(p.astype(np.int64), 0, n - 1)
+    return [s[p] for s in srcs]
 
 
 @pytest.mark.parametrize("srcs,pos,valid", [c[1:] for c in _gather_cases()],
                          ids=[c[0] for c in _gather_cases()])
 def test_gather_matches_jax(interpret_mode, srcs, pos, valid):
+    """The JAX kernels where they take the case: their contract is
+    ascending positions, and the JAX engine sends a k > 1 gather whose
+    1024-row blocks span more than the widest window to XLA; elsewhere the
+    numpy contract stands in.  A count held in an array is a device tensor for
+    the port."""
     valid = len(pos) if valid is None else valid
+    tvalid = torch.tensor(int(valid)) if isinstance(valid, np.ndarray) \
+        else valid
     jpos = jnp.asarray(pos)
+    prepped = _np_gather([np.arange(len(srcs[0]))], pos, valid)[0]
+    ascending = bool(np.all(np.diff(prepped) >= 0))
     if len(srcs) == 1:
-        want = [np.asarray(jgather.sorted_gather(jnp.asarray(srcs[0]), jpos,
-                                                 valid))]
+        want = ([np.asarray(jgather.sorted_gather(
+            jnp.asarray(srcs[0]), jpos, valid))] if ascending
+            else _np_gather(srcs, pos, valid))
         got = [tgather.sorted_gather(torch.from_numpy(srcs[0]),
-                                     torch.from_numpy(pos), valid)]
+                                     torch.from_numpy(pos), tvalid)]
     else:
         fit = jgather.resolve_fit(len(srcs[0]), jpos, valid)
-        want = [np.asarray(w) for w in jgather.gather_many(
-            [jnp.asarray(s) for s in srcs], jpos, valid, static_fit=fit)]
+        takes = fit is not False and ascending
+        want = (_np_gather(srcs, pos, valid) if not takes else
+                [np.asarray(w) for w in jgather.gather_many(
+                    [jnp.asarray(s) for s in srcs], jpos, valid,
+                    static_fit=fit)])
         got = tgather.gather_many([torch.from_numpy(s) for s in srcs],
-                                  torch.from_numpy(pos), valid)
+                                  torch.from_numpy(pos), tvalid)
     for g, w, s in zip(got, want, srcs):
         assert g.dtype == torch.from_numpy(s).dtype
         # rows past valid are unspecified to callers: compare the prefix
         np.testing.assert_array_equal(g.numpy()[:valid], w[:valid])
+
+
+# gather.cu's layout: 256-thread blocks (8 warps), at most 8 sources a
+# launch
+GATHER_WARPS, GATHER_MAX_SOURCES = 8, 8
+
+
+def _gather_v(k):
+    """gather.cu's rows per thread (kRows) of a launch of k sources."""
+    return 2 if k <= 3 else 1
+
+
+def _gather_rows(m, V):
+    """gather.cu's rows-to-thread map: [tiles, V, 32] row indices (-1 past
+    m).  Warp w of the grid owns tile w, the rows [w * 32 V, (w + 1) * 32
+    V); lane l of it takes rows l, l + 32, ..., l + 32 (V - 1), so one
+    load or store instruction of a warp (fixed r) covers 32 consecutive
+    rows.  The grid has tiles / 8 blocks of 8 warps, rounded up; the last
+    block's warps past the last tile return at once."""
+    tile = 32 * V
+    tiles = -(-m // tile)
+    blocks = -(-tiles // GATHER_WARPS)
+    assert (blocks - 1) * GATHER_WARPS < tiles <= blocks * GATHER_WARPS
+    rows = (np.arange(tiles)[:, None, None] * tile
+            + np.arange(V)[None, :, None] * 32 + np.arange(32))
+    return np.where(rows < m, rows, -1)
+
+
+def _gather_thread_model(srcs, pos, valid):
+    """numpy statement of gather.cu.  The wrapper cuts the sources into
+    launches of at most 8 in order; each launch groups its int32 and its
+    int64 sources (the kernel's K4 and K8).  Rows map to threads as
+    ``_gather_rows`` says, ``_gather_v`` of them a thread.  A row past m
+    reads the position of row m - 1 and stores nothing; a row past
+    ``valid`` takes the position of row valid - 1 (of row 0 when valid is
+    0); every position then clips into the source.  All loads of a
+    thread's V rows precede its stores.
+    Returns the outputs and the launches."""
+    m, n, k = len(pos), len(srcs[0]), len(srcs)
+    vlast = min(max(valid - 1, 0), m - 1)
+    outs = [np.zeros(m, s.dtype) for s in srcs]
+    written = np.zeros((k, m), np.int64)
+    launches = []
+    for lo in range(0, k, GATHER_MAX_SOURCES):
+        part = range(lo, min(lo + GATHER_MAX_SOURCES, k))
+        g4 = [j for j in part if srcs[j].dtype == np.int32]
+        g8 = [j for j in part if srcs[j].dtype == np.int64]
+        assert 1 <= len(g4) + len(g8) <= GATHER_MAX_SOURCES
+        launches.append((g4, g8))
+        rows = _gather_rows(m, _gather_v(len(g4) + len(g8)))
+        live = rows >= 0
+        # every instruction: 32 consecutive rows, or the last tile's prefix
+        assert (np.diff(rows, axis=2)[live[:, :, 1:]] == 1).all()
+        i = np.where(live, rows, m - 1)
+        q = np.clip(pos[np.where(i < valid, i, vlast)].astype(np.int64), 0,
+                    n - 1)
+        for j in g4 + g8:
+            vals = srcs[j][q]              # the loads, every row
+            outs[j][rows[live]] = vals[live]  # the stores, rows below m
+            written[j, rows[live]] += 1
+    assert (written == 1).all()  # every output row stored once
+    return outs, launches
+
+
+def _thread_map_case(seed):
+    rng = np.random.default_rng(100 + seed)
+    n = int(rng.integers(1, 3000))
+    m = int(rng.integers(1, 2500))
+    kind = ("ascending", "identity", "random", "runs")[seed % 4]
+    if kind == "ascending":
+        pos = np.sort(rng.integers(-2, n + 2, m + 3))
+    elif kind == "identity":
+        pos = np.arange(m + 3) + int(rng.integers(0, 5))
+    elif kind == "random":
+        pos = rng.integers(-2, n + 2, m + 3)
+    else:  # runs of consecutive positions of random lengths
+        starts = np.sort(rng.integers(0, n, m + 3))
+        pos = np.sort(starts - (np.arange(m + 3)
+                                % int(rng.integers(1, 40))))
+    pdt = np.int64 if seed % 5 == 0 else np.int32
+    off = int(rng.integers(0, 4))
+    pos = pos.astype(pdt)[off:off + m]
+    k = int(rng.integers(1, 13))
+    soff = int(rng.integers(0, 2)) if seed % 3 == 0 else 0
+    srcs = [(rng.integers(-(1 << 62), 1 << 62, n + soff) if rng.random() < .5
+             else rng.integers(-(1 << 31), 1 << 31, n + soff).astype(np.int32)
+             )[soff:] for _ in range(k)]
+    valid = (len(pos), 0, int(rng.integers(0, len(pos) + 1)))[seed % 3]
+    return srcs, pos, valid
+
+
+@pytest.mark.parametrize("seed", range(24))
+def test_gather_thread_map_arithmetic(seed):
+    """The kernel's rows-to-thread mapping, tail repeat, ragged last tile,
+    dtype grouping and launch split (the numpy model above) against the
+    plain version, over random m, position orders and dtypes, view
+    offsets, k and valid."""
+    srcs, pos, valid = _thread_map_case(seed)
+    outs, launches = _gather_thread_model(srcs, pos, valid)
+    want = tgather.gather_many_plain([torch.from_numpy(s) for s in srcs],
+                                     torch.from_numpy(pos), valid)
+    for o, w in zip(outs, want):
+        np.testing.assert_array_equal(o, w.numpy())
+    k = len(srcs)
+    assert len(launches) == -(-k // GATHER_MAX_SOURCES)
+    assert sorted(j for g4, g8 in launches for j in g4 + g8) == list(
+        range(k))
+
+
+def test_gather_thread_map_lines():
+    """Why the rows are warp-interleaved: at the filter-project's 15.9%
+    density one warp load of an int32 source spans about 7 of its 128-byte
+    lines; with a lane's 4 rows side by side (one 16-byte access of
+    positions and of outputs per lane) it spans about 23, and the L1 serves
+    one line per cycle."""
+    rng = np.random.default_rng(0)
+    n = 1 << 20
+    pos = np.flatnonzero(rng.random(n) < 0.159)
+    rows = _gather_rows(len(pos), V=4)
+    full = rows[(rows >= 0).all(axis=(1, 2))]        # [tiles, 4, lanes]
+    blocked = full[:, :1, :1] + 4 * np.arange(32) + np.arange(4)[:, None]
+
+    def lines(r):  # mean 128-byte lines of an int32 source per instruction
+        line = np.sort(pos[r] * 4 // 128, axis=-1)
+        return (line[..., 1:] != line[..., :-1]).sum(axis=-1).mean() + 1
+
+    interleaved, blocked = lines(full), lines(blocked)
+    assert 6 < interleaved < 8 and 21 < blocked < 26, (interleaved, blocked)
 
 
 def test_gather_device_valid_and_tail():
