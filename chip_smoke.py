@@ -1,6 +1,7 @@
 """Drives the PyTorch/CUDA port (``mplan2vdl_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py [--sf 10] [--seed 1] [--out FILE] [--profile DIR]
+        [--old-lib FILE]
 
 Phases (any failure ends the run with a nonzero exit; nothing is caught):
   1. the card (``nvidia-smi`` name and power limit) and the torch, CUDA,
@@ -61,13 +62,24 @@ Phases (any failure ends the run with a nonzero exit; nothing is caught):
      gather.cu launch by k, dtypes, m, n and the order of its positions;
      ``--profile`` adds each engine kernel's device time per query (the
      device total counts kernels only, not the launch ranges' device-side
-     spans) and each census class's device time;
-  5. the probes: ``tools.probe_kernels`` (every pattern probe OK, each
-     kernel equal to its plain version, timed) and ``tools.probe_radix``
-     at its default sizes and the lineitem row count rounded up to a
-     block, with the launch counters of the two probe kernels read around
-     them; then an empty kernel's launch through the probes' ctypes path
-     is timed, which bounds the launch-bound probes;
+     spans) and each census class's device time; ``--old-lib FILE`` (an
+     older ``engine/kernels/_lib.py``) also times each run with that
+     file's launch path and the checkout's in turns (old, new, new, old;
+     one ``lib_ab`` per query record, and a line with the sums);
+  5. the probes: ``tools.probe_kernels`` (every pattern probe OK) and
+     ``tools.probe_radix`` at its default sizes and the lineitem row count
+     rounded up to a block, with the launch counters of the two probe
+     kernels read around them; each probe kernel, and the contraction
+     kernels on ``probe_contract_cases`` (every rhs mode and accumulator
+     width, the tensor-core variant at its depth bound with four groups of
+     warps), exactly equal to its plain version; under torch.profiler,
+     one device kernel per probe call; then (``tools/bench_probes.py``)
+     each probe's device and host microseconds beside its library
+     expression's, and the probes, their plain versions, their library
+     expressions and an empty launch through the same path timed in 5
+     interleaved turns after a warm-up turn: the medians, each turn's
+     share of the launch bound (one pass's launches at the empty launch's
+     time), and the probes slower than their library expression;
   6. the command line, each command in its own process: ``genplans`` of
      the thirteen in-code plans (``CLI_PLANS``) against metadata files of
      the store (``write_metadata``) must compile all of them, and
@@ -456,6 +468,8 @@ FP_COLUMNS = ["l_orderkey", "l_quantity", "l_extendedprice", "l_discount"]
 
 # timed launches per kernel (after two warm-up launches)
 REPS = 20
+# phase 5: interleaved turns of the probes, calls a turn, and host-clock calls
+PROBE_TURNS, PROBE_REPS, PROBE_HOST_CALLS = 5, 200, 10_000
 
 # NVIDIA H100 SXM data sheet: 3.35 TB/s of HBM3 at the 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
@@ -1095,6 +1109,50 @@ def scatter_edge_cases(tile, chunk):
     return out
 
 
+def probe_contract_cases():
+    """numpy cases (name, op, a, rhs, params) of the probes' contractions
+    at the edges of probes.cu's design: ``fma_contract`` in each rhs mode at
+    each accumulator width (n = 1, 5, 9, 17, 32), a depth off the 256-row
+    tile and three batch items; ``mma_contract`` with 32 planes and 32
+    groups at the row-wise depth bound 2^15 with every byte 255 (each
+    warp's int32 cell near 2^31, four groups of warps and the largest
+    shared buffer), one-hot keys over 196 steps with keys outside the
+    groups, the one-mask mode, and 16 one-step batch items."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+
+    def ints(shape, lo, hi):
+        return rng.integers(lo, hi, shape).astype(np.int32)
+
+    out = []
+    batch, m, k = 3, 2, 1000
+    for mode in range(4):
+        for n in (1, 5, 9, 17, 32):
+            rhs = (ints((batch, n, k), 0, 2) if mode <= 1
+                   else ints((batch, k), -1, n + 1))
+            out.append((f"fma mode {mode} n {n}", "fma",
+                        ints((batch, m, k), 0, 1 << 12), rhs,
+                        dict(m=m, n=n, k=k, mode=mode, key=1, batch=batch)))
+    k = 1 << 15
+    a = ints((2, 8, k), 0, 2**31 - 1)
+    a[0] = 2**31 - 1
+    rhs = ints((2, 32, k), 0, 256)
+    rhs[0] = 255
+    out += [("mma rows 32x32 at 2^15 bytes 255", "mma", a, rhs,
+             dict(nlimb=4, m=8, n=32, k=k, mode=0, key=0, batch=2)),
+            ("mma one-hot over 196 steps", "mma",
+             ints((2, 3, 100_000), 0, 1 << 24), ints((2, 100_000), -1, 22),
+             dict(nlimb=3, m=3, n=20, k=100_000, mode=2, key=0, batch=2)),
+            ("mma key", "mma", ints((4, 5, 777), 0, 1 << 16),
+             ints((4, 777), 0, 9),
+             dict(nlimb=2, m=5, n=3, k=777, mode=3, key=7, batch=4)),
+            ("mma 16 one-step items", "mma", ints((16, 1, 128), 0, 1000),
+             ints((16, 128), 0, 4),
+             dict(nlimb=2, m=1, n=4, k=128, mode=2, key=0, batch=16))]
+    return out
+
+
 def same_rows(got, want) -> bool:
     """Whether two column lists hold the same rows, in any order."""
     import numpy as np
@@ -1195,6 +1253,29 @@ def _sh(cmd):
 
 def _bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+# the functions of engine/kernels/_lib.py that every kernel launch goes
+# through (``--old-lib`` swaps them for an older file's)
+LAUNCH_PATH = ("lib", "call", "check", "stream", "ptrs", "ints")
+
+
+def load_old_lib(path: str):
+    """An older ``_lib.py`` as a module of its own, bound to the
+    checkout's built library (built by phase 2, so it builds nothing)."""
+    import importlib.util
+
+    from mplan2vdl_tpu_torch.engine.kernels import _lib
+
+    spec = importlib.util.spec_from_file_location("m2v_old_lib", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.CSRC, mod.BUILD_DIR, mod.LIB_PATH = (_lib.CSRC, _lib.BUILD_DIR,
+                                             _lib.LIB_PATH)
+    mod._SIGNATURES = {k: v for k, v in mod._SIGNATURES.items()
+                       if k in _lib._SIGNATURES}
+    mod.lib()
+    return mod
 
 
 # the CUDA function names of each engine kernel, as the profiler reports
@@ -2164,6 +2245,7 @@ class Smoke:
                   ("compact", "gather", "small_gather"))]
         total = {k: 0 for k in counters}
         join_total = {k: 0 for k in counters}
+        ab_total = {}
         os.environ.pop("MPLAN2VDL_MXU_AGG", None)
         # the engine's scatter calls of each query's first run: shapes and
         # in-range rows, for their bounds
@@ -2344,6 +2426,10 @@ class Smoke:
                    "joins": cq.join_log,
                    "repeat_scatters": repeats.get(name, []),
                    "paths": paths[name], "card": self.smi}
+            if getattr(self.args, "old_lib", None):
+                rec["lib_ab"] = self.lib_ab(cq)
+                ab_total = {v: ab_total.get(v, 0.0) + ms
+                            for v, ms in rec["lib_ab"].items()}
             if self.args.profile:
                 index = {k: i for i, k in enumerate(census)}
                 rec["profile"] = self.profile(
@@ -2357,6 +2443,10 @@ class Smoke:
             os.environ.pop("MPLAN2VDL_MXU_AGG", None)
             del cq
         self.launches = total
+        if getattr(self.args, "old_lib", None):
+            print(json.dumps({"lib_ab": self.args.old_lib, "runs": len(runs),
+                              "median_ms_sum": ab_total, "card": self.smi}),
+                  flush=True)
         self.gather_census(census)
         self.records["engine_scatters"] = scatters
         self.records["repeat_scatters"] = repeats
@@ -2378,6 +2468,33 @@ class Smoke:
             raise AssertionError(f"the general-join runs launched no {idle}")
         print(json.dumps({"main_path_launches": total,
                           "general_join_launches": join_total}), flush=True)
+
+    def lib_ab(self, cq):
+        """The median of 5 warm calls of ``cq`` with the launch path
+        (``LAUNCH_PATH`` of ``_lib``) of the ``--old-lib`` file and with
+        the checkout's, in turns (old, new, new, old); each one's mean."""
+        from mplan2vdl_tpu_torch.engine.kernels import _lib
+
+        if not hasattr(self, "old_lib"):
+            self.old_lib = load_old_lib(self.args.old_lib)
+        new = {k: getattr(_lib, k) for k in LAUNCH_PATH}
+        turns = {"old": [], "new": []}
+        try:
+            for v in ("old", "new", "new", "old"):
+                for k in LAUNCH_PATH:
+                    setattr(_lib, k, getattr(self.old_lib, k) if v == "old"
+                            else new[k])
+                ms = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    cq.run()
+                    self.sync()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                turns[v].append(statistics.median(ms))
+        finally:
+            for k, fn in new.items():
+                setattr(_lib, k, fn)
+        return {v: sum(t) / len(t) for v, t in turns.items()}
 
     def gather_census(self, census):
         """Prints the ``{"gather_census": ...}`` line: every class of
@@ -2436,14 +2553,22 @@ class Smoke:
 
     def probe_phase(self):
         """Runs the two probe tools on the card with their launch counters
-        reset around them; holds every pattern kernel exactly equal to its
-        plain version and times both."""
+        reset around them; holds every pattern kernel, and the contraction
+        kernels at the edges of their design (``probe_contract_cases``),
+        exactly equal to its plain version; checks under torch.profiler
+        that one call of each probe runs one device kernel; then records
+        each probe's device and host microseconds beside its library
+        expression's, and times the probes, their plain versions, their
+        library expressions and an empty launch in interleaved turns
+        (``tools/bench_probes.py``)."""
         import importlib
 
         from mplan2vdl_tpu_torch.engine.kernels import probes as P
         from mplan2vdl_tpu_torch.engine.kernels import radix_rank as rr
+        from mplan2vdl_tpu_torch.tools import bench_probes as B
         from mplan2vdl_tpu_torch.tools import probe_kernels, probe_radix
 
+        torch = self.torch
         counters = {
             k: (importlib.import_module(
                 f"mplan2vdl_tpu_torch.engine.kernels.{mod}"), attr)
@@ -2466,35 +2591,69 @@ class Smoke:
                 raise AssertionError(f"kernel {k} was not launched by the "
                                      "probe tools")
 
-        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-        P.launches = 0
-        for p in probe_kernels.make_probes(self.dev):
-            got = p.run(P)
-            e = self.equal(f"probes {p.name}", got, p.run(P.PLAIN))
+        probes = probe_kernels.make_probes(self.dev)
+        for p in probes:
+            e = self.equal(f"probes {p.name}", p.run(P), p.run(P.PLAIN))
             self.max_err["probes"] = max(self.max_err["probes"], e)
-            rec = {"probe": p.name,
-                   "ms": self.cuda_ms(lambda: p.run(P), REPS),
-                   "plain_ms": self.cuda_ms(lambda: p.run(P.PLAIN), REPS),
-                   "bound_ms": _bound_ms(p.nbytes(got))}
+            if not B.check_library(p):
+                raise AssertionError(f"{p.name}: the library expression "
+                                     f"{B.library(p)[0]} is wrong")
+        for name, op, a, rhs, kw in probe_contract_cases():
+            a = torch.from_numpy(a).to(self.dev)
+            rhs = torch.from_numpy(rhs).to(self.dev)
+            if op == "fma":
+                def run(ops):
+                    return ops.fma_contract(a, rhs, kw["m"], kw["n"],
+                                            kw["k"], kw["mode"], kw["key"],
+                                            kw["batch"])
+            else:
+                def run(ops):
+                    return ops.mma_contract(a, kw["nlimb"], rhs, kw["m"],
+                                            kw["n"], kw["k"], kw["mode"],
+                                            kw["key"], kw["batch"])
+            e = self.equal(f"probes {name}", run(P), run(P.PLAIN))
+            self.max_err["probes"] = max(self.max_err["probes"], e)
+            del a, rhs
+        one = B.one_kernel_each(probes)
+        print(json.dumps({"probe_kernels_per_call": {
+            k: v["kernels"] for k, v in one.items()}}), flush=True)
+
+        timed = B.turns(probes, self.dev, PROBE_TURNS, PROBE_REPS)
+        tot = {"plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+        for p in probes:
+            text, calls, lib = B.library(p)
+            rec = {"probe": p.name, **timed["probes"][p.name],
+                   "library": text, "library_calls": calls,
+                   "bound_ms": _bound_ms(p.nbytes(p.run(P))),
+                   "device": B.device(lambda: p.run(P)),
+                   "host_us": B.host_us(lambda: p.run(P), PROBE_HOST_CALLS),
+                   "library_device": B.device(lib),
+                   "library_host_us": B.host_us(lib, PROBE_HOST_CALLS),
+                   "card": self.smi}
             for k in tot:
                 tot[k] += rec[k]
             self.records.setdefault("probe_times", []).append(rec)
             print(json.dumps(rec), flush=True)
         # the probes are launch-bound: their bound is the larger of their
         # bytes at the memory rate and their launches, one pass of the 15
-        # runs, at the time of an empty launch through the same ctypes path
-        P.launches = 0
-        for p in probe_kernels.make_probes(self.dev):
-            p.run(P)
-        per_pass = P.launches
-        noop_ms = self.cuda_ms(lambda: P.noop(self.dev), 10 * REPS)
+        # runs, at the time of an empty launch through the same path
+        per_pass, noop_ms = timed["launches"], timed["noop_ms"]
+        slower = [p.name for p in probes
+                  if timed["probes"][p.name]["ms"]
+                  > timed["probes"][p.name]["library_ms"]]
         self.probe_bound = {"bytes_ms": tot["bound_ms"], "noop_ms": noop_ms,
                             "launches": per_pass,
-                            "launches_ms": per_pass * noop_ms}
+                            "launches_ms": per_pass * noop_ms,
+                            "turns": timed["turns"],
+                            "min_share": timed["min_share"],
+                            "slower_than_library": slower,
+                            "noop_host_us": B.host_us(
+                                lambda: P.noop(self.dev), PROBE_HOST_CALLS)}
         print(json.dumps({"probe_bound": self.probe_bound}), flush=True)
         self.kernel_time("probes", "the 15 probe runs (12 probes and 3 "
-                         "tensor-core variants), summed", tot["ms"],
-                         tot["plain_ms"], None,
+                         "tensor-core variants), summed; the median of "
+                         f"{PROBE_TURNS} interleaved turns", timed["ms"],
+                         tot["plain_ms"], tot["library_ms"],
                          max(tot["bound_ms"], per_pass * noop_ms), per_pass)
 
     def cli(self, argv, timeout):
@@ -3255,6 +3414,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--out", default=None,
                     help="also write every record as JSON to this file")
+    ap.add_argument("--old-lib", default=None, metavar="FILE",
+                    help="an older engine/kernels/_lib.py: phase 4 also "
+                         "times each run with its launch path and the "
+                         "checkout's in turns")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="profile one warm call of each query (phase 4) "
                          "and distributed plan (phase 8) with "

@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -34,6 +34,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+# the C entry points of _SIGNATURES, resolved once when the library loads
+_entries: Dict[str, Callable[..., int]] = {}
+_profiling = torch.autograd._profiler_enabled
+# the cheapest public read of a device's current stream (a torch.Stream,
+# made in C++; torch.cuda.current_stream builds a Python object, ~2.5x
+# the host time)
+_current_stream = torch.accelerator.current_stream
 # filled by build(): seconds taken and each source's ptxas report
 build_info: Dict[str, object] = {}
 
@@ -128,7 +135,13 @@ def build() -> float:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built first if missing or stale."""
+    """The loaded kernel library, built first if missing or stale.  Once
+    it is loaded, no lock is taken."""
+    handle = _lib
+    return handle if handle is not None else _load()
+
+
+def _load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
@@ -139,6 +152,7 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(handle, name)
                 fn.argtypes = args
                 fn.restype = res
+                _entries[name] = fn
             _lib = handle
         return _lib
 
@@ -147,8 +161,8 @@ def call(name: str, *args) -> int:
     """Calls the C entry point ``name`` (a kernel launch) and returns its
     error code.  While torch.profiler records, the call is a range named
     ``name``, so a trace names each launch beside its kernel."""
-    fn = getattr(lib(), name)
-    if not torch.autograd._profiler_enabled():
+    fn = _entries.get(name) or getattr(lib(), name)
+    if not _profiling():
         return fn(*args)
     with torch.profiler.record_function(name):
         return fn(*args)
@@ -164,7 +178,12 @@ def check(rc: int, what: str) -> None:
 
 def stream(t: torch.Tensor) -> int:
     """The handle of the current CUDA stream of ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return _current_stream(t.get_device()).native_handle
+
+
+def device_stream(index: int) -> int:
+    """The handle of the current CUDA stream of device ``index``."""
+    return _current_stream(index).native_handle
 
 
 def ptrs(values) -> ctypes.Array:

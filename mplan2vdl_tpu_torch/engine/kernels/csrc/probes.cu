@@ -5,25 +5,36 @@
 // Pallas kernels that asked which vector patterns Mosaic lowers, and which
 // it miscompiles: tile transposes, lane/sublane reshapes, multi-dimension
 // dot_generals, masked and one-hot contractions, strided slices, wide
-// takes).  On this card each pattern is one of five kernels here:
-//   transpose_kernel   a 32 x 33 shared-memory tile transpose (probe 1, and
-//                      the explicit rhs transpose of probe 9);
+// takes).  On this card each probe is one launch of one of five kernels:
+//   transpose_kernel   a 32 x 33 shared-memory tile transpose (probe 1);
 //   rows_copy_kernel   an index-remapping copy, out[r][c] = x[(row0 + r *
 //                      step) * src_cols + c]: the two reshapes (identity on
 //                      the flat index) and the strided row slice;
-//   fma_kernel         one warp per output element, float FMA over the
-//                      contraction and a shuffle reduction (probes 4, 5, 7,
-//                      8, 9, 10);
-//   mma_kernel         the same contraction through mma_u8.cuh, the device
-//                      code of multiagg_mxu.cu, with the values split into
-//                      u8 limbs as that kernel splits them (second variants
-//                      of probes 5, 7 and 8);
+//   fma_kernel<MODE>   float FMA contractions (probes 4, 5, 7, 8, 9, 10):
+//                      one block per (batch, lhs row) splits the
+//                      contraction over its 8 warps and computes all n <= 32
+//                      outputs from one read of the row; the rhs mode is a
+//                      template parameter.  Probe 9 (mode kRowsT) stages
+//                      the [n, k] rhs through shared memory as its
+//                      transpose [k][n] and reads it from there;
+//   mma_kernel<MODE>   the same contraction on the tensor cores through
+//                      mma_u8.cuh, the device code of multiagg_mxu.cu, with
+//                      the values split into u8 limbs as that kernel splits
+//                      them (second variants of probes 5, 7 and 8): up to
+//                      four 128-thread groups a block take the 512-row
+//                      steps in turn, each in its own shared buffer; the
+//                      warps' int32 fragments are summed in shared memory
+//                      and the limbs shifted and added in int64 before one
+//                      store of each output (no zero fill, no atomics);
 //   take_kernel        a table in shared memory, one lookup per thread
 //                      (probes 11 and 12).
 //
 // Bound on an H100: launch latency.  Every probe moves at most a few
 // hundred KB and does at most 2^20 multiply-adds, microseconds of work at
-// the card's rates; chip_smoke.py records the byte bound beside each time.
+// the card's rates, so each probe is one launch, and the host path in
+// front of it (probes.py, _lib.py) is what is left to cut.  chip_smoke.py
+// phase 5 checks one device kernel per probe call and times each probe
+// beside an empty launch and the PyTorch expression of the same function.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,6 +45,19 @@ namespace {
 
 constexpr int kTile = 32;
 constexpr int kTakeMax = 8192;  // int32 entries of the take table
+
+// rhs modes (probes.py RHS_*): rhs[b][j][kk]; the same, staged through
+// shared memory as its transpose; the one-hot keys[b][kk] == j; one mask
+// keys[b][kk] == key in every column j
+constexpr int kRows = 0, kRowsT = 1, kOneHot = 2, kKey = 3;
+
+constexpr int kFmaThreads = 256;
+constexpr int kFmaWarps = kFmaThreads / 32;
+constexpr int kMaxCols = 32;  // n of a contraction
+// floats of fma_kernel<kRowsT>'s staged transpose: 256 rows at n = 32
+constexpr int kStageWords = kFmaThreads * (kMaxCols + 1);
+
+constexpr int kMmaGroups = 4;  // 128-thread groups of an mma_kernel block
 
 __global__ void transpose_kernel(const int32_t* __restrict__ x, int rows,
                                  int cols, int32_t* __restrict__ out) {
@@ -62,85 +86,159 @@ __global__ void rows_copy_kernel(const int32_t* __restrict__ x, int src_cols,
   }
 }
 
-// The rhs element (batch b, output column j, contraction index kk):
-//   mode 0: rhs[b][j][kk]   mode 1: rhs[b][kk][j]
-//   mode 2: keys[b][kk] == j   mode 3: keys[b][kk] == key
-__device__ __forceinline__ int rhs_at(const int32_t* __restrict__ rhs,
-                                      int mode, int b, int j, int kk, int n,
-                                      int k, int key) {
-  switch (mode) {
-    case 0: return rhs[((long long)b * n + j) * k + kk];
-    case 1: return rhs[((long long)b * k + kk) * n + j];
-    case 2: return rhs[(long long)b * k + kk] == j;
-    default: return rhs[(long long)b * k + kk] == key;
+// out[b][i][j] = sum_kk float(a[b][i][kk]) * float(rhs element of column j)
+// for NB >= n columns (NB = 1 in mode kKey: every column gets one sum).
+// Block (b, i) = blockIdx.x reads its lhs row once; thread t takes kk = t,
+// t + 256, ... into NB independent accumulators; each warp reduces them by
+// shuffles, and the 8 warps' sums meet in shared memory.  Exact while every
+// partial sum is an integer below 2^24, whatever the order.
+template <int MODE, int NB>
+__global__ void __launch_bounds__(kFmaThreads)
+fma_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ rhs,
+           int m, int n, int k, int key, float* __restrict__ out) {
+  const int row = blockIdx.x, b = row / m, tid = threadIdx.x;
+  const int32_t* arow = a + (long long)row * k;
+  const int32_t* r = rhs + (MODE == kRows || MODE == kRowsT
+                                ? (long long)b * n * k
+                                : (long long)b * k);
+  float acc[NB];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) acc[j] = 0.f;
+  if constexpr (MODE == kRowsT) {
+    // the rhs, kc contraction rows at a time, as its transpose: t[c *
+    // stride + j] = rhs[j][k0 + c], staged with consecutive threads on
+    // consecutive (j, c) of the rhs; an odd stride keeps both the staging
+    // stores and the contraction's loads on distinct banks
+    __shared__ float t[kStageWords];
+    const int stride = n | 1;
+    const int kc = kStageWords / stride / kFmaThreads * kFmaThreads;
+    for (int k0 = 0; k0 < k; k0 += kc) {
+      const int rows = min(kc, k - k0);
+      __syncthreads();
+#pragma unroll 4
+      for (int e = tid; e < n * rows; e += kFmaThreads) {
+        const int j = e / rows, c = e - j * rows;
+        t[c * stride + j] = (float)r[(long long)j * k + k0 + c];
+      }
+      __syncthreads();
+      for (int c = tid; c < rows; c += kFmaThreads) {
+        const float x = (float)arow[k0 + c];
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          if (j < n) acc[j] = fmaf(x, t[c * stride + j], acc[j]);
+      }
+    }
+  } else {
+#pragma unroll 4
+    for (int kk = tid; kk < k; kk += kFmaThreads) {
+      const float x = (float)arow[kk];
+      if constexpr (MODE == kRows) {
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          if (j < n) acc[j] = fmaf(x, (float)r[(long long)j * k + kk], acc[j]);
+      } else if constexpr (MODE == kOneHot) {
+        const int g = r[kk];
+#pragma unroll
+        for (int j = 0; j < NB; ++j) acc[j] += g == j ? x : 0.f;
+      } else {
+        acc[0] += r[kk] == key ? x : 0.f;
+      }
+    }
+  }
+  __shared__ float part[kFmaWarps][NB];
+  const int lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    float s = acc[j];
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) s += __shfl_xor_sync(0xffffffffu, s, d);
+    if (lane == 0) part[warp][j] = s;
+  }
+  __syncthreads();
+  if (tid < n) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kFmaWarps; ++w) s += part[w][MODE == kKey ? 0 : tid];
+    out[(long long)row * n + tid] = s;
   }
 }
 
-// out[b][i][j] = sum_kk float(a[b][i][kk]) * float(rhs element)
-__global__ void fma_kernel(const int32_t* __restrict__ a,
-                           const int32_t* __restrict__ rhs, int batch, int m,
-                           int n, int k, int mode, int key,
-                           float* __restrict__ out) {
-  const long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x & 31;
-  if (w >= (long long)batch * m * n) return;  // whole warps return
-  const int b = (int)(w / ((long long)m * n)), i = (int)(w / n % m),
-            j = (int)(w % n);
-  const int32_t* row = a + ((long long)b * m + i) * k;
-  float s = 0.f;
-  for (int kk = lane; kk < k; kk += 32)
-    s = fmaf((float)row[kk], (float)rhs_at(rhs, mode, b, j, kk, n, k, key), s);
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) s += __shfl_xor_sync(0xffffffffu, s, d);
-  if (lane == 0) out[w] = s;
+// The barrier of one 128-thread group (named barrier 1 + group; 0 is
+// __syncthreads).
+__device__ __forceinline__ void group_sync(int group) {
+  asm volatile("bar.sync %0, %1;" ::"r"(group + 1), "r"(m2v::kThreads)
+               : "memory");
 }
 
 // The fma_kernel contraction on the tensor cores, one block per batch item,
 // in multiagg_mxu.cu's layout: plane l * m + i holds limb l of a's row i,
-// group j the byte rhs element of column j (modes 0, 2 and 3); out (int64,
-// zeroed) gets each limb's sum shifted by 8 * l.  k < 2^23, so the int32
-// fragments need no flush.
-__global__ void __launch_bounds__(m2v::kThreads)
+// group j the byte rhs element of column j (modes kRows, kOneHot, kKey).
+// Group g of the block's G = blockDim.x / 128 groups packs and contracts
+// the 512-row steps g, g + G, ... in its own buffer of 16 * mt plane rows
+// and 8 * nt group rows (rows past np and ng are never written: they only
+// reach fragment cells that are not stored).  Then every warp's fragment
+// cells go to shared memory, and out[b][i][j] = sum_l (sum over warps) <<
+// 8 * l in int64.  A warp's int32 cell gains at most 255 * 255 a row in
+// mode kRows and 255 in the others; the wrapper bounds k so that no cell
+// passes 2^31.
+template <int MODE>
+__global__ void __launch_bounds__(m2v::kThreads * kMmaGroups)
 mma_kernel(const int32_t* __restrict__ a, int nlimb,
-           const int32_t* __restrict__ rhs, int m, int n, int k, int mode,
-           int key, unsigned long long* __restrict__ out) {
+           const int32_t* __restrict__ rhs, int m, int n, int k, int key,
+           long long* __restrict__ out) {
   using namespace m2v;
-  __shared__ __align__(16) uint32_t planes[kChunkPlanes * kStride];
-  __shared__ __align__(16) uint32_t groups[kChunkGroups * kStride];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int G = blockDim.x / kThreads, group = threadIdx.x / kThreads;
+  const int tid = threadIdx.x % kThreads, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x, np = m * nlimb, ng = n;
   const int mt = (np + 15) / 16, nt = (ng + 7) / 8;
-  for (int i = tid; i < kChunkPlanes * kStride; i += kThreads) {
-    planes[i] = 0;
-    groups[i] = 0;
-  }
+  uint32_t* planes = smem + group * (16 * mt + 8 * nt) * kStride;
+  uint32_t* groups = planes + 16 * mt * kStride;
+  const int32_t* r = rhs + (MODE == kRows ? (long long)b * n * k
+                                          : (long long)b * k);
   int c[kMTiles][kNTiles][4] = {};
-  for (int step0 = 0; step0 < k; step0 += kStepRows) {
-    const int r0 = step0 + 4 * tid;
-    __syncthreads();
-    for (int p = 0; p < np; ++p) {
-      const int l = p / m;
-      const int32_t* row = a + ((long long)b * m + p % m) * k;
-      uint32_t by[4];
+  const int steps = (k + kStepRows - 1) / kStepRows;
+  for (int s = group; s < steps; s += G) {
+    const int r0 = s * kStepRows + 4 * tid;
+    for (int i = 0; i < m; ++i) {
+      const int32_t* row = a + ((long long)b * m + i) * k;
+      uint32_t v[4];
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj)
-        by[jj] = r0 + jj < k
-                     ? limb8((unsigned long long)(long long)row[r0 + jj], l)
-                     : 0u;
-      planes[p * kStride + tid] = pack_bytes(by[0], by[1], by[2], by[3]);
+        v[jj] = r0 + jj < k ? (uint32_t)row[r0 + jj] : 0u;
+      for (int l = 0; l < nlimb; ++l)
+        planes[(l * m + i) * kStride + tid] =
+            pack_bytes(limb8(v[0], l), limb8(v[1], l), limb8(v[2], l),
+                       limb8(v[3], l));
     }
-    for (int q = 0; q < ng; ++q) {
-      uint32_t by[4];
+    if constexpr (MODE == kRows) {
+      for (int q = 0; q < ng; ++q) {
+        uint32_t by[4];
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-        by[jj] = r0 + jj < k
-                     ? (uint32_t)rhs_at(rhs, mode, b, q, r0 + jj, n, k, key)
-                     : 0u;
-      groups[q * kStride + tid] = pack_bytes(by[0], by[1], by[2], by[3]);
+        for (int jj = 0; jj < 4; ++jj)
+          by[jj] = r0 + jj < k ? (uint32_t)r[(long long)q * k + r0 + jj] : 0u;
+        groups[q * kStride + tid] = pack_bytes(by[0], by[1], by[2], by[3]);
+      }
+    } else {
+      int g[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) g[jj] = r0 + jj < k ? r[r0 + jj] : -1;
+      for (int q = 0; q < ng; ++q) {
+        const int want = MODE == kOneHot ? q : key;
+        groups[q * kStride + tid] =
+            pack_bytes(r0 < k && g[0] == want, r0 + 1 < k && g[1] == want,
+                       r0 + 2 < k && g[2] == want, r0 + 3 < k && g[3] == want);
+      }
     }
-    __syncthreads();
+    group_sync(group);
     contract_step(planes, groups, warp, lane, mt, nt, c);
+    group_sync(group);
   }
+  __syncthreads();
+  // every warp's cells: red[(w * np + p) * ng + q], w = 4 * group + warp
+  // (fits in the staging buffers: 4 * np * ng <= (16 mt + 8 nt) * kStride)
+  int* red = reinterpret_cast<int*>(smem);
+  const int w = group * kWarps + warp;
 #pragma unroll
   for (int i = 0; i < kMTiles; ++i)
 #pragma unroll
@@ -152,9 +250,20 @@ mma_kernel(const int32_t* __restrict__ a, int nlimb,
         p += 16 * i;
         q += 8 * j;
         if (i < mt && j < nt && p < np && q < ng)
-          atomicAdd(out + ((long long)b * m + p % m) * n + q,
-                    (unsigned long long)(unsigned)c[i][j][e] << (8 * (p / m)));
+          red[(w * np + p) * ng + q] = c[i][j][e];
       }
+  __syncthreads();
+  const int nw = G * kWarps;
+  for (int o = threadIdx.x; o < m * n; o += blockDim.x) {
+    const int i = o / n, j = o - i * n;
+    long long s = 0;
+    for (int l = 0; l < nlimb; ++l) {
+      long long t = 0;
+      for (int ww = 0; ww < nw; ++ww) t += red[(ww * np + l * m + i) * ng + j];
+      s += t << (8 * l);
+    }
+    out[(long long)b * m * n + o] = s;
+  }
 }
 
 // out[i] = table[idx[i]] for the rows of this block's share of idx; the
@@ -178,6 +287,64 @@ __global__ void take_kernel(const int32_t* __restrict__ table, int table_n,
 __global__ void noop_kernel() {}
 
 cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
+
+template <int MODE, int NB>
+void launch_fma(const void* a, const void* rhs, int batch, int m, int n,
+                int k, int key, void* out, cudaStream_t s) {
+  fma_kernel<MODE, NB><<<batch * m, kFmaThreads, 0, s>>>(
+      static_cast<const int32_t*>(a), static_cast<const int32_t*>(rhs), m, n,
+      k, key, static_cast<float*>(out));
+}
+
+template <int MODE>
+void launch_fma_cols(const void* a, const void* rhs, int batch, int m, int n,
+                     int k, int key, void* out, cudaStream_t s) {
+  if (n <= 4)
+    launch_fma<MODE, 4>(a, rhs, batch, m, n, k, key, out, s);
+  else if (n <= 8)
+    launch_fma<MODE, 8>(a, rhs, batch, m, n, k, key, out, s);
+  else if (n <= 16)
+    launch_fma<MODE, 16>(a, rhs, batch, m, n, k, key, out, s);
+  else
+    launch_fma<MODE, 32>(a, rhs, batch, m, n, k, key, out, s);
+}
+
+// Raises mma_kernel<MODE>'s dynamic shared memory limit to the most any
+// launch asks (kMmaGroups groups of 32 plane and 32 group rows), once per
+// device, so that a launch pays no attribute call.
+template <int MODE>
+cudaError_t allow_smem() {
+  static unsigned long long raised = 0;  // a bit per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (raised & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(
+      mma_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)(kMmaGroups * (m2v::kChunkPlanes + m2v::kChunkGroups) *
+            m2v::kStride * sizeof(uint32_t)));
+  if (e == cudaSuccess) raised |= bit;
+  return e;
+}
+
+template <int MODE>
+int launch_mma(const void* a, int nlimb, const void* rhs, int batch, int m,
+               int n, int k, int key, void* out, cudaStream_t s) {
+  const int mt = (m * nlimb + 15) / 16, nt = (n + 7) / 8;
+  const int steps = (k + m2v::kStepRows - 1) / m2v::kStepRows;
+  const int groups = steps < kMmaGroups ? steps : kMmaGroups;
+  const size_t smem = (size_t)groups * (16 * mt + 8 * nt) * m2v::kStride *
+                      sizeof(uint32_t);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = allow_smem<MODE>();
+    if (e != cudaSuccess) return (int)e;
+  }
+  mma_kernel<MODE><<<batch, groups * m2v::kThreads, smem, s>>>(
+      static_cast<const int32_t*>(a), nlimb, static_cast<const int32_t*>(rhs),
+      m, n, k, key, static_cast<long long*>(out));
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -206,30 +373,48 @@ int m2v_probe_rows_copy(const void* x, int src_cols, int row0, int row_step,
   return (int)cudaGetLastError();
 }
 
-// a: int32[batch, m, k]; rhs per `mode` (see rhs_at); out: float[batch, m, n].
+// a: int32[batch, m, k]; rhs: int32[batch, n, k] (modes 0 and 1) or the
+// keys int32[batch, k] (modes 2 and 3); out: float[batch, m, n], n <= 32.
 int m2v_probe_fma(const void* a, const void* rhs, int batch, int m, int n,
                   int k, int mode, int key, void* out, void* stream) {
-  if (batch < 1 || m < 1 || n < 1 || k < 1 || mode < 0 || mode > 3)
+  if (batch < 1 || m < 1 || n < 1 || n > kMaxCols || k < 1 ||
+      (long long)batch * m > 0x7fffffffll)
     return (int)cudaErrorInvalidValue;
-  const long long warps = (long long)batch * m * n;
-  fma_kernel<<<(unsigned)((warps + 7) / 8), 256, 0, as_stream(stream)>>>(
-      static_cast<const int32_t*>(a), static_cast<const int32_t*>(rhs), batch,
-      m, n, k, mode, key, static_cast<float*>(out));
+  const cudaStream_t s = as_stream(stream);
+  switch (mode) {
+    case kRows: launch_fma_cols<kRows>(a, rhs, batch, m, n, k, key, out, s);
+      break;
+    case kRowsT: launch_fma_cols<kRowsT>(a, rhs, batch, m, n, k, key, out, s);
+      break;
+    case kOneHot:
+      launch_fma_cols<kOneHot>(a, rhs, batch, m, n, k, key, out, s);
+      break;
+    case kKey: launch_fma<kKey, 1>(a, rhs, batch, m, n, k, key, out, s);
+      break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
-// As m2v_probe_fma (modes 0, 2, 3, rhs bytes 0..255, non-negative a) on the
-// tensor cores; out: zeroed int64[batch, m, n].
+// As m2v_probe_fma (modes 0, 2, 3, rhs bytes 0..255, non-negative a below
+// 2^(8 * nlimb)) on the tensor cores; out: int64[batch, m, n], every entry
+// written.
 int m2v_probe_mma(const void* a, int nlimb, const void* rhs, int batch, int m,
                   int n, int k, int mode, int key, void* out, void* stream) {
   if (batch < 1 || m < 1 || n < 1 || k < 1 || nlimb < 1 || nlimb > 4 ||
-      m * nlimb > m2v::kChunkPlanes || n > m2v::kChunkGroups || mode == 1 ||
-      mode < 0 || mode > 3 || k >= (1 << 23))
+      m * nlimb > m2v::kChunkPlanes || n > m2v::kChunkGroups ||
+      k > (mode == kRows ? (1 << 15) : (1 << 23) - 1))
     return (int)cudaErrorInvalidValue;
-  mma_kernel<<<batch, m2v::kThreads, 0, as_stream(stream)>>>(
-      static_cast<const int32_t*>(a), nlimb, static_cast<const int32_t*>(rhs),
-      m, n, k, mode, key, static_cast<unsigned long long*>(out));
-  return (int)cudaGetLastError();
+  const cudaStream_t s = as_stream(stream);
+  switch (mode) {
+    case kRows:
+      return launch_mma<kRows>(a, nlimb, rhs, batch, m, n, k, key, out, s);
+    case kOneHot:
+      return launch_mma<kOneHot>(a, nlimb, rhs, batch, m, n, k, key, out, s);
+    case kKey:
+      return launch_mma<kKey>(a, nlimb, rhs, batch, m, n, k, key, out, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // out[i] = table[clip(idx[i])]; `blocks` blocks each copy the table into

@@ -76,7 +76,7 @@ def make_probes(dev) -> List[Probe]:
     want4 = np.einsum("rsc,gsc->rg", v_np.astype(f32), m_np.astype(f32))
     out.append(Probe(
         "dot_general_2d_contract",
-        lambda ops: ops.fma_contract(v, m, R, G, S * C, P.RHS_ROWS)[0],
+        lambda ops: ops.fma_contract(v, m, R, G, S * C, P.RHS_ROWS),
         want4, [v, m]))
 
     # 5. one-hot of the group id contracted along each row
@@ -111,13 +111,11 @@ def make_probes(dev) -> List[Probe]:
     out += [
         Probe("stack_plus_dot_general",
               lambda ops: ops.fma_contract(vals, gid, 1, G, S * C,
-                                           P.RHS_ONEHOT).reshape(1, G)
-              .expand(S, G),
+                                           P.RHS_ONEHOT).expand(S, G),
               want7, [vals, gid]),
         Probe("stack_plus_dot_general [mma u8]",
               lambda ops: ops.mma_contract(vals, 2, gid, 1, G, S * C,
-                                           P.RHS_ONEHOT).reshape(1, G)
-              .expand(S, G),
+                                           P.RHS_ONEHOT).expand(S, G),
               want7, [vals, gid]),
     ]
 
@@ -130,19 +128,20 @@ def make_probes(dev) -> List[Probe]:
     out += [
         Probe("dot_abT_contract_lanes",
               lambda ops: ops.fma_contract(flatv, flatm, R3, G, S * C,
-                                           P.RHS_ROWS)[0],
+                                           P.RHS_ROWS),
               want8, [flatv, flatm]),
         Probe("dot_abT_contract_lanes [mma u8]",
               lambda ops: ops.mma_contract(flatv, 2, flatm, R3, G, S * C,
-                                           P.RHS_ROWS)[0],
+                                           P.RHS_ROWS),
               want8, [flatv, flatm]),
     ]
 
-    # 9. wide transpose [G, S*C] -> [S*C, G], then a plain matmul
+    # 9. wide transpose [G, S*C] -> [S*C, G], then a plain matmul: one
+    #    launch that stages the transpose in shared memory
     out.append(Probe(
         "matmul_with_rhs_T",
-        lambda ops: ops.fma_contract(flatv, ops.transpose(flatm), R3, G,
-                                     S * C, P.RHS_COLS)[0],
+        lambda ops: ops.fma_contract(flatv, flatm, R3, G, S * C,
+                                     P.RHS_ROWS_T),
         want8, [flatv, flatm]))
 
     # 10. (R, S, 128) rows flattened to (R, S*128), contracted against the
@@ -155,7 +154,7 @@ def make_probes(dev) -> List[Probe]:
     out.append(Probe(
         "reshape_stack_dot",
         lambda ops: ops.fma_contract(vals3, gid, R3, G, S * C, P.RHS_KEY,
-                                     key=1)[0],
+                                     key=1),
         want10, [vals3, gid]))
 
     # 11./12. take from a 1024-wide source: each of 8 rows from its own
