@@ -48,7 +48,11 @@ Phases (any failure ends the run with a nonzero exit; nothing is caught):
      path (PLAN_DISTINCT_DENSE) and on its two-sort fallback
      (PLAN_DISTINCT_WIDE), and a repeated-position scatter over most of
      lineitem (PLAN_Q4_ALL), each with a spy that must see its path taken
-     (one ``{"path": ...}`` line each).
+     (one ``{"path": ...}`` line each); last, a hand-built VIR DAG of the
+     one node no plan emits, ``Semisort`` over sum(l_quantity) per
+     l_orderkey (a buffer with padding past its valid rows), which must
+     equal the stable argsort of the whole buffer on the host (its own
+     ``{"path": "Semisort"}`` line).
      Each run is row-exact against its oracle (Q4, Q4 over all orders and
      Q16 in order, Q3's top 10 tie-tolerantly), and the engine kernels'
      launch counters are
@@ -81,7 +85,7 @@ Phases (any failure ends the run with a nonzero exit; nothing is caught):
      share of the launch bound (one pass's launches at the empty launch's
      time), and the probes slower than their library expression;
   6. the command line, each command in its own process: ``genplans`` of
-     the thirteen in-code plans (``CLI_PLANS``) against metadata files of
+     the seventeen plans of phase 4 (``CLI_PLANS``) against metadata files of
      the store (``write_metadata``) must compile all of them, and
      ``compile``, ``compile --dot`` and ``explain`` of each must print a
      program (no device); ``run`` of Q5 on the card at the chosen scale,
@@ -107,24 +111,29 @@ Phases (any failure ends the run with a nonzero exit; nothing is caught):
      calls, the peak GB, the bucket capacities, the card).  No engine
      kernel runs there (the counters are read around the phase);
   8. the plan distributor (``parallel/auto.py``) in the same world: each of
-     the thirteen ``CLI_PLANS`` and a lineitem self-join (``AUTO_PLANS``,
-     the one plan whose join runs as a partitioned shuffle join at SF10)
-     through ``auto.distribute`` (set-up timed: the join's counting
-     rounds), one cold call held row-exact against the plan's oracle, then
+     the seventeen ``CLI_PLANS`` and three plans of the partitioned
+     shuffle join (``AUTO_PLANS``): a lineitem self-join, the hot join
+     (PLAN_HOT_JOIN, whose heavy-key round must find heavy keys and leave
+     light ones) and Q13's outer join by nation (PLAN_Q13_NATION, orders
+     as a partitioned right frame), each through ``auto.distribute``
+     (set-up timed: the join's counting rounds; a ``NotDistributable``
+     fails the phase unless ``EXPECTED_NOT_DISTRIBUTABLE`` names the
+     plan), one cold call held row-exact against the plan's oracle, then
      3 warm calls; one ``{"auto": ...}`` line each with its ``describe()``
-     lines (a partitioned join's capacities among them), the cold and warm
-     times beside the plan's phase-4 median, the
-     peak GB and the engine kernels' launches over its calls
-     (``--profile`` traces one more warm call of each).  The phase must
-     launch the compaction and the gather kernels (the shard-local engine
-     path runs the ported kernels);
+     lines (a partitioned join's capacities among them), each partitioned
+     join's heavy keys and capacities, the cold and warm times beside the
+     plan's phase-4 (or single-device) median, the peak GB and the engine
+     kernels' launches over its calls (``--profile`` traces one more warm
+     call of each).  The phase must launch the compaction and the gather
+     kernels (the shard-local engine path runs the ported kernels);
   9. the plan census (tests/torch_census_cases.py) over a store of scale
      CENSUS_SF = 1, cut from SF10 because its oracle runs in numpy on the
      host: the JAX package's CPU census (40 fuzz plans, run three times:
      with the default gate, MPLAN2VDL_FUSED_AGG=1, and MPLAN2VDL_MXU_AGG=1
      besides; their 40 ordered forms; 7 null-semantics plans; 5 join
      corners; 2 semi/anti joins with an extra condition; 2 count(DISTINCT)
-     plans) and the fourteen in-code plans (AUTO_PLANS), each through
+     plans) and the plans of phase 8 (AUTO_PLANS) but CENSUS_SKIP's, each
+     through
      ``passes.engine_passes(vir.vexps_from_mplan(...))`` + ``CompiledQuery``
      on the card and held against the port's relational oracle
      (``oracle/relinterp.py``, computed once a plan in spawned worker
@@ -133,6 +142,7 @@ Phases (any failure ends the run with a nonzero exit; nothing is caught):
      one ``{"census": ...}`` line per family (plans, rows out, engine and
      oracle seconds, launches, the card); the phase must launch every
      engine kernel.
+Each phase's seconds are printed as it ends (``{"phase_s": ...}``).
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits nonzero and prints no result.  The plan texts and the
@@ -461,6 +471,42 @@ PLAN_Q4_ALL = """project (
 ) [ orders.o_orderpriority, L1.order_count ] [ orders.o_orderpriority ASC ]
 """
 
+# the distributor's paths no plan above reaches at SF10 (phase 8 shows each
+# taken).  The lineitems shipped in 1994 joined on l_linenumber with the
+# lines of the first orders (l_orderkey < 9, a few dozen rows), grouped by
+# l_returnflag: a fact-frame partitioned shuffle join whose few keys each
+# pair millions of left rows, so the heavy-key round takes the keys of the
+# most lines out of the exchange and leaves the rarest ones to it
+PLAN_HOT_JOIN = """project (
+| group by (
+| | join (
+| | | select (
+| | | | table(sys.lineitem) [ lineitem.l_linenumber NOT NULL, lineitem.l_quantity NOT NULL, lineitem.l_returnflag NOT NULL, lineitem.l_shipdate NOT NULL ] COUNT
+| | | ) [ lineitem.l_shipdate NOT NULL >= date "1994-01-01", lineitem.l_shipdate NOT NULL < date "1995-01-01" ],
+| | | select (
+| | | | table(sys.lineitem) [ lineitem.l_linenumber NOT NULL as L1.l_linenumber, lineitem.l_orderkey NOT NULL as L1.l_orderkey, lineitem.l_extendedprice NOT NULL as L1.l_extendedprice ] COUNT
+| | | ) [ L1.l_orderkey NOT NULL < int "9" ]
+| | ) [ lineitem.l_linenumber NOT NULL = L1.l_linenumber NOT NULL ]
+| ) [ lineitem.l_returnflag ] [ lineitem.l_returnflag, sys.count() NOT NULL as L2.L2, sys.sum no nil (lineitem.l_quantity NOT NULL) as L3.L3, sys.sum no nil (L1.l_extendedprice NOT NULL) as L4.L4 ]
+) [ lineitem.l_returnflag, L2 as L5.cnt, L3 as L5.sum_lqty, L4 as L5.sum_rprice ]
+"""
+
+# TPC-H Q13's outer join (customer left outer join the orders whose comment
+# is not like '%special%requests%') grouped by c_nationkey: a dense domain
+# of 25, so the distributor shards orders as the right frame of a
+# partitioned shuffle join (Q13 itself groups by c_custkey and goes sparse)
+PLAN_Q13_NATION = """project (
+| group by (
+| | left outer join (
+| | | table(sys.customer) [ customer.c_custkey NOT NULL, customer.c_nationkey NOT NULL ] COUNT,
+| | | select (
+| | | | table(sys.orders) [ orders.o_orderkey NOT NULL, orders.o_custkey NOT NULL, orders.o_comment NOT NULL ] COUNT
+| | | ) [ orders.o_comment NOT NULL ! FILTER like (varchar[char(19) "%special%requests%"], varchar "") ]
+| | ) [ customer.c_custkey NOT NULL = orders.o_custkey NOT NULL ]
+| ) [ customer.c_nationkey ] [ customer.c_nationkey, sys.count no nil (orders.o_orderkey) as L1.L1, sys.count() NOT NULL as L2.L2 ]
+) [ customer.c_nationkey, L1 as L3.n_orders, L2 as L3.n_rows ]
+"""
+
 Q1_COLUMNS = ["l_returnflag", "l_linestatus", "sum_qty", "sum_base_price",
               "sum_disc_price", "sum_charge", "avg_qty", "avg_price",
               "avg_disc", "count_order"]
@@ -521,7 +567,7 @@ Q17_COLUMNS = ["sum_price"]
 SUBSTR_COLUMNS = ["cntrycode", "numcust", "totacctbal"]
 Q4_COLUMNS = ["o_orderpriority", "order_count"]
 Q16_COLUMNS = ["p_brand", "p_type", "p_size", "supplier_cnt"]
-# every in-code plan under its file name for the command line (phase 6):
+# every plan of phase 4 under its file name for the command line (phase 6):
 # Q1's three runs and the Q3 runs differ only by switches and by the ORDER
 # BY ... LIMIT
 CLI_PLANS = {"q6": PLAN_Q6, "q1": PLAN_Q1,
@@ -529,12 +575,49 @@ CLI_PLANS = {"q6": PLAN_Q6, "q1": PLAN_Q1,
              "q5": PLAN_Q5, "sparse_groupby": PLAN_SPARSE_GROUPBY,
              "q9": PLAN_Q9, "q13": PLAN_Q13, "q17": PLAN_Q17,
              "substr_groupby": PLAN_SUBSTR_GROUPBY, "q4": PLAN_Q4,
-             "q3_top10": PLAN_Q3_TOP10, "q16": PLAN_Q16}
-# the plans of phase 8: the in-code plans, and the self-join, whose
-# partitioned shuffle join none of them reaches at SF10 (Q13 and Q17 go
-# sparse there and replicate their right sides)
-AUTO_PLANS = {**CLI_PLANS, "self_join": PLAN_SELF_JOIN}
+             "q3_top10": PLAN_Q3_TOP10, "q16": PLAN_Q16,
+             "dense_join": PLAN_DENSE_JOIN,
+             "distinct_dense": PLAN_DISTINCT_DENSE,
+             "distinct_wide": PLAN_DISTINCT_WIDE, "q4_all": PLAN_Q4_ALL}
+# the plans of phase 8: the command line's, and three whose distributor
+# paths none of them reaches at SF10: the self-join's partitioned shuffle
+# join (Q13 and Q17 go sparse there and replicate their right sides), the
+# hot join's heavy keys and the nation count's partitioned dimension table
+AUTO_PLANS = {**CLI_PLANS, "self_join": PLAN_SELF_JOIN,
+              "hot_join": PLAN_HOT_JOIN, "q13_nation": PLAN_Q13_NATION}
+# the scale of the generated store when no --sf is given
+CARD_SF = 10.0
+# the plans of AUTO_PLANS that auto.distribute refuses at CARD_SF, each with
+# the refusal's text; any other refusal, or another text, fails phase 8.
+# PLAN_DISTINCT_WIDE's (group, value) key needs 69 bits at SF10, and the
+# distributed count(DISTINCT) composes it into one key of at most 64 (the
+# JAX distributor's verdict at SF10's key widths, tests/test_torch_auto.py;
+# below about SF1 it fits and the plan distributes)
+EXPECTED_NOT_DISTRIBUTABLE = {
+    "distinct_wide": "count(distinct): composite (group, values) key "
+                     "exceeds the 64-bit budget"}
+# the plans of AUTO_PLANS that the census (phase 9) leaves out, each with
+# the reason
+CENSUS_SKIP = {
+    "hot_join": "the front end pulls both selects above the join, so the "
+                "relational oracle pairs every lineitem row with every other "
+                "of its l_linenumber before it filters: about n^2 / 5 pairs, "
+                "7 * 10^12 at SF1; oracle_hot_join holds the plan in phase 8"}
+# the plans of phase 8 that must take a partitioned shuffle join, each with
+# the text its describe() line must hold
+AUTO_PATHS = {"self_join": "right=fact frame", "hot_join": "right=fact frame",
+              "q13_nation": "right=orders OUTER"}
 SELF_JOIN_COLUMNS = ["l_returnflag", "cnt", "sum_lqty", "sum_rprice"]
+Q13_NATION_COLUMNS = ["c_nationkey", "n_orders", "n_rows"]
+# the phase-4 runs of the paths no other phase-4 plan reaches at SF10, each
+# shown taken by a spy: the dense-domain join, FDistinct's dense path and its
+# two-sort fallback, and a repeated-position scatter over most of lineitem
+DENSE_JOIN_RUN = "dense-domain join"
+DISTINCT_DENSE_RUN = "count(DISTINCT) dense"
+DISTINCT_WIDE_RUN = "count(DISTINCT) two-sort"
+Q4_ALL_RUN = "Q4 all orders"
+# phase 4's run of a hand-built VIR DAG: Semisort, which no plan emits
+SEMISORT_RUN = "Semisort"
 # each of CLI_PLANS under its phase-4 run's name (phase 8 prints that run's
 # single-device median beside its own)
 AUTO_PHASE4 = {"q6": "Q6", "q1": "Q1 fused (auto gate)",
@@ -542,7 +625,10 @@ AUTO_PHASE4 = {"q6": "Q6", "q1": "Q1 fused (auto gate)",
                "sparse_groupby": "sparse group-by", "q9": "Q9",
                "q13": "Q13", "q17": "Q17",
                "substr_groupby": "substring group-by", "q4": "Q4",
-               "q3_top10": "Q3 top 10", "q16": "Q16"}
+               "q3_top10": "Q3 top 10", "q16": "Q16",
+               "dense_join": DENSE_JOIN_RUN,
+               "distinct_dense": DISTINCT_DENSE_RUN,
+               "distinct_wide": DISTINCT_WIDE_RUN, "q4_all": Q4_ALL_RUN}
 # (below the fused gate's rows, phase 4's Q1 run under the gate is unfused)
 AUTO_PHASE4_SMALL = {"q1": "Q1 (auto gate: unfused)"}
 # the C entry points of Q5's kernel launches, which its profiler trace must
@@ -573,13 +659,6 @@ CENSUS_REFERENCE = {"fuzz": "relinterp", "ordered": "relinterp, in order",
                     "tpch": "relinterp"}
 # worker processes computing the census oracles while the card runs
 CENSUS_WORKERS = 6
-# the phase-4 runs of the paths no CLI plan reaches at SF10, each shown
-# taken by a spy: the dense-domain join, FDistinct's dense path and its
-# two-sort fallback, and a repeated-position scatter over most of lineitem
-DENSE_JOIN_RUN = "dense-domain join"
-DISTINCT_DENSE_RUN = "count(DISTINCT) dense"
-DISTINCT_WIDE_RUN = "count(DISTINCT) two-sort"
-Q4_ALL_RUN = "Q4 all orders"
 DENSE_JOIN_COLUMNS = ["l_returnflag", "cnt", "sum_price"]
 DISTINCT_DENSE_COLUMNS = ["l_returnflag", "l_linestatus", "parts"]
 DISTINCT_WIDE_COLUMNS = ["l_orderkey", "l_partkey", "prices"]
@@ -807,6 +886,65 @@ def oracle_self_join(st):
         out[2].append((qty[m] * n).sum())
         out[3].append(price[ok[m]].sum())
     return [np.asarray(o, np.int64) for o in out]
+
+
+def hot_join_sides(st):
+    """PLAN_HOT_JOIN's two sides by key: the l_linenumber values ``keys``,
+    then per key the right side's rows and their price sum, and per
+    (l_returnflag, key) the left side's rows and their quantity sum
+    (flags along the first axis, in ``flags``' order)."""
+    import numpy as np
+
+    c = lambda n: st.columns[("lineitem", n)]  # noqa: E731
+    ship = c("l_shipdate")
+    left = (ship >= _day(1994, 1, 1)) & (ship < _day(1995, 1, 1))
+    right = c("l_orderkey") < 9
+    line = c("l_linenumber")
+    keys = np.unique(line)
+    lk = np.searchsorted(keys, line[left])
+    rk = np.searchsorted(keys, line[right])
+    rc = np.bincount(rk, minlength=len(keys))
+    rp = np.bincount(rk, c("l_extendedprice")[right].astype(np.float64),
+                     minlength=len(keys)).astype(np.int64)
+    flags, fi = np.unique(c("l_returnflag")[left], return_inverse=True)
+    cell = fi.reshape(-1) * len(keys) + lk
+    size = len(flags) * len(keys)
+    lc = np.bincount(cell, minlength=size).reshape(len(flags), len(keys))
+    # float64 sums are exact: each is below 2^53 at SF10 (at most ~10M
+    # rows of quantity < 2^13)
+    lq = np.bincount(cell, c("l_quantity")[left].astype(np.float64),
+                     minlength=size).astype(np.int64).reshape(lc.shape)
+    return dict(keys=keys, rc=rc, rp=rp, flags=flags, lc=lc, lq=lq)
+
+
+def oracle_hot_join(st):
+    """PLAN_HOT_JOIN by key, with no expansion: a left row of key k pairs
+    with the rc[k] right rows of k, so count = sum_k lc[f, k] * rc[k], the
+    quantity sum sum_k lq[f, k] * rc[k] and the price sum
+    sum_k lc[f, k] * rp[k]; flags with no pair are absent."""
+    import numpy as np
+
+    s = hot_join_sides(st)
+    cnt, lqty, rprice = s["lc"] @ s["rc"], s["lq"] @ s["rc"], s["lc"] @ s["rp"]
+    keep = cnt > 0
+    return [np.asarray(a, np.int64)[keep]
+            for a in (s["flags"], cnt, lqty, rprice)]
+
+
+def oracle_q13_nation(st):
+    """PLAN_Q13_NATION: each customer's orders whose comment is not like
+    '%special%requests%', summed by nation; a customer with no order is one
+    row of no order."""
+    import numpy as np
+
+    c = lambda t, n: st.columns[(t, n)]  # noqa: E731
+    special = _codes_matching(st, "orders", "o_comment", "special.*requests")
+    keep = ~np.isin(c("orders", "o_comment"), special)
+    ckeys = c("customer", "c_custkey")
+    ci, cfound = _pk_lookup(ckeys, c("orders", "o_custkey")[keep])
+    per_cust = np.bincount(ci[cfound], minlength=len(ckeys))
+    return _group([c("customer", "c_nationkey")],
+                  [(per_cust, np.add), (np.maximum(per_cust, 1), np.add)])
 
 
 def _by_order(cols, spec):
@@ -1338,6 +1476,39 @@ def gather_class(srcs, pos, valid):
     order = ("consecutive" if bool((d == 1).all())
              else "ascending" if bool((d >= 0).all()) else "unordered")
     return gather_shape(srcs, pos) + (order,)
+
+
+def kernel_counters(spec=None):
+    """``spec`` (default ``COUNTERS``) with each wrapper module imported:
+    kernel name -> (module, counter attribute)."""
+    import importlib
+
+    return {k: (importlib.import_module(
+        f"mplan2vdl_tpu_torch.engine.kernels.{mod}"), attr)
+        for k, (mod, attr) in (spec or COUNTERS).items()}
+
+
+def part_joins(dq):
+    """Each partitioned shuffle join of a distributed plan ``dq``: its
+    right frame, whether it is outer, its pair count and, from the
+    heavy-key round (``caps["heavy"]``), the heavy keys with their exact
+    build-row and pair capacities."""
+    import torch
+
+    from mplan2vdl_tpu_torch.parallel.shuffle_join import key_sents
+
+    out = []
+    for pj in dq.part_joins.values():
+        caps = pj["caps"] or {}
+        heavy = caps.get("heavy")
+        big = key_sents(torch.int32 if pj.get("k32") else torch.int64)[0]
+        keys = [int(k) for k in heavy["hk"] if k != big] if heavy else []
+        out.append({"right": pj["table"] or "fact frame",
+                    "outer": bool(pj["outer"]), "pairs": caps.get("total"),
+                    "n_heavy": len(keys), "heavy_keys": keys,
+                    "cap_hb": heavy["cap_hb"] if heavy else None,
+                    "cap_hp": heavy["cap_hp"] if heavy else None})
+    return out
 
 
 class Smoke:
@@ -2089,7 +2260,7 @@ class Smoke:
         print(json.dumps(rec), flush=True)
 
     def plan_checks(self):
-        """``CLI_PLANS`` name -> the check of a result of that plan against
+        """``AUTO_PLANS`` name -> the check of a result of that plan against
         its oracle (Q4 and Q16 in order, Q3's top 10 tie-tolerantly),
         built once for phases 4 and 8; each oracle's seconds are printed
         as it runs."""
@@ -2181,12 +2352,12 @@ class Smoke:
                                          oracle_distinct_dense),
             "distinct_wide": check_rows(DISTINCT_WIDE_COLUMNS,
                                         oracle_distinct_wide),
-            "q4_all": check_in_order(Q4_COLUMNS, oracle_q4_all)}
+            "q4_all": check_in_order(Q4_COLUMNS, oracle_q4_all),
+            "hot_join": check_rows(SELF_JOIN_COLUMNS, oracle_hot_join),
+            "q13_nation": check_rows(Q13_NATION_COLUMNS, oracle_q13_nation)}
         return self._checks
 
     def query_phase(self):
-        import importlib
-
         from mplan2vdl_tpu_torch.engine import lower
         from mplan2vdl_tpu_torch.engine.kernels import scatter
         from mplan2vdl_tpu_torch.engine.kernels import sorted_gather as sg
@@ -2194,10 +2365,7 @@ class Smoke:
             fused_agg_on, plan_to_vexps
         from mplan2vdl_tpu_torch.tools import bench_gather
 
-        counters = {
-            k: (importlib.import_module(
-                f"mplan2vdl_tpu_torch.engine.kernels.{mod}"), attr)
-            for k, (mod, attr) in COUNTERS.items()}
+        counters = kernel_counters()
         st, cfg = self.st, self.cfg
         chk = self.plan_checks()
 
@@ -2468,6 +2636,68 @@ class Smoke:
             raise AssertionError(f"the general-join runs launched no {idle}")
         print(json.dumps({"main_path_launches": total,
                           "general_join_launches": join_total}), flush=True)
+        self.semisort_run()
+
+    def semisort_run(self):
+        """Phase 4's run of the one VIR node no plan emits: ``Semisort``
+        over sum(l_quantity) per l_orderkey, a sparse fold whose buffer
+        has rows past its valid count, built by hand as
+        tests/test_torch_ordered.py builds it.  The fold's valid rows must
+        be the per-order sums, and the permutation must equal the stable
+        argsort of the whole buffer, padding included, on the host
+        (``np.argsort(kind="stable")``); then 5 warm calls are timed.  One
+        ``{"path": "Semisort", ...}`` line."""
+        import numpy as np
+
+        from mplan2vdl_tpu_torch import vir as V
+        from mplan2vdl_tpu_torch.engine.lower import CompiledQuery
+
+        cfg = self.cfg
+        fold = V.complete(V.Fold(
+            foldop=V.FSUM, fgroups=V.load_raw(cfg, ("lineitem", "l_orderkey")),
+            fdata=V.load_raw(cfg, ("lineitem", "l_quantity"))))
+        cq = CompiledQuery(cfg, [fold, V.complete(V.Semisort(sdata=fold))],
+                           self.st, device=self.dev)
+        cq.device_args()
+        counters = kernel_counters()
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        self.sync()
+        t0 = time.perf_counter()
+        buf, perm = cq.run()
+        self.sync()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: getattr(mod, attr)
+                    for k, (mod, attr) in counters.items()}
+        valid, length = int(buf.valid), buf.length
+        data = buf.data.cpu().numpy()
+        got = perm.data.cpu().numpy()
+        t0 = time.perf_counter()
+        want = np.argsort(data, kind="stable")
+        argsort_s = time.perf_counter() - t0
+        c = lambda n: self.st.columns[("lineitem", n)]  # noqa: E731
+        _, sums = _group([c("l_orderkey")], [(c("l_quantity"), np.add)])
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            cq.run()
+            self.sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        rec = {"path": SEMISORT_RUN, "sf": self.args.sf, "n": length,
+               "valid": valid, "padding": length - valid,
+               "dtype": str(perm.data.dtype), "cold_ms": cold_ms,
+               "median_ms": statistics.median(times), "ms": times,
+               "host_argsort_s": argsort_s, "launches": launches,
+               "card": self.smi}
+        self.records["semisort"] = rec
+        print(json.dumps(rec), flush=True)
+        if not (length - valid > 0 and np.array_equal(data[:valid], sums)):
+            raise AssertionError(f"Semisort: the fold's buffer ({valid} of "
+                                 f"{length} rows valid) is not the per-order"
+                                 " sums with padding past them")
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError("Semisort: the permutation differs from the "
+                                 "stable argsort of the whole buffer")
 
     def lib_ab(self, cq):
         """The median of 5 warm calls of ``cq`` with the launch path
@@ -2561,18 +2791,13 @@ class Smoke:
         expression's, and times the probes, their plain versions, their
         library expressions and an empty launch in interleaved turns
         (``tools/bench_probes.py``)."""
-        import importlib
-
         from mplan2vdl_tpu_torch.engine.kernels import probes as P
         from mplan2vdl_tpu_torch.engine.kernels import radix_rank as rr
         from mplan2vdl_tpu_torch.tools import bench_probes as B
         from mplan2vdl_tpu_torch.tools import probe_kernels, probe_radix
 
         torch = self.torch
-        counters = {
-            k: (importlib.import_module(
-                f"mplan2vdl_tpu_torch.engine.kernels.{mod}"), attr)
-            for k, (mod, attr) in PROBE_COUNTERS.items()}
+        counters = kernel_counters(PROBE_COUNTERS)
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
         rows = probe_kernels.run(self.dev)
@@ -2819,7 +3044,6 @@ class Smoke:
         of 5 warm calls).  Then phase 8 (``"auto"``, ``auto_phase``) in the
         same world.  The one rank meets itself at ``coordinator`` (default:
         a free localhost port)."""
-        import importlib
         import socket
 
         import torch.distributed as tdist
@@ -2827,10 +3051,7 @@ class Smoke:
         from mplan2vdl_tpu_torch.parallel import multihost
 
         dev = self.dev
-        counters = {
-            k: (importlib.import_module(
-                f"mplan2vdl_tpu_torch.engine.kernels.{mod}"), attr)
-            for k, (mod, attr) in COUNTERS.items()}
+        counters = kernel_counters()
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
         t_phase = time.perf_counter()
@@ -3023,17 +3244,13 @@ class Smoke:
         the plan's phase-4 single-device median, the peak GB and the
         engine kernels' launches over the calls.  The phase must launch
         the compaction and the gather kernels."""
-        import importlib
         import types
 
         from mplan2vdl_tpu_torch.engine.lower import plan_to_vexps
         from mplan2vdl_tpu_torch.parallel import auto
 
         torch, st, cfg = self.torch, self.st, self.cfg
-        counters = {
-            k: (importlib.import_module(
-                f"mplan2vdl_tpu_torch.engine.kernels.{mod}"), attr)
-            for k, (mod, attr) in COUNTERS.items()}
+        counters = kernel_counters()
         checks = self.plan_checks()
         single = {rec["query"]: rec["median_ms"]
                   for rec in self.records["queries"]}
@@ -3056,7 +3273,16 @@ class Smoke:
                 rec["not_distributable"] = str(e)
                 print(json.dumps(rec), flush=True)
                 self.records["auto"].append(rec)
+                if str(e) != EXPECTED_NOT_DISTRIBUTABLE.get(name):
+                    raise AssertionError(f"{name} is not distributable: "
+                                         f"{e}") from e
                 continue
+            if (name in EXPECTED_NOT_DISTRIBUTABLE
+                    and self.args.sf == CARD_SF):
+                raise AssertionError(
+                    f"{name} distributes at SF{CARD_SF:g}, but "
+                    f"EXPECTED_NOT_DISTRIBUTABLE says: "
+                    f"{EXPECTED_NOT_DISTRIBUTABLE[name]}")
             self.sync()
             rec["setup_ms"] = (time.perf_counter() - t0) * 1e3
             t0 = time.perf_counter()
@@ -3078,9 +3304,11 @@ class Smoke:
                 total[k] += launches[k]
             rec.update(
                 describe=dq.describe().splitlines(), rows_out=rows_out,
-                warm_ms=times, median_ms=statistics.median(times),
+                part_joins=part_joins(dq), warm_ms=times,
+                median_ms=statistics.median(times),
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                 launches=launches, card=self.smi)
+            self.check_auto_path(name, rec)
             if name in AUTO_PHASE4:
                 rec["single_device_median_ms"] = single.get(
                     AUTO_PHASE4[name], single.get(AUTO_PHASE4_SMALL.get(
@@ -3102,6 +3330,32 @@ class Smoke:
         print(json.dumps({"auto_phase_s": self.records["auto_phase_s"],
                           "auto_launches": total}), flush=True)
 
+    def check_auto_path(self, name, rec):
+        """A plan of ``AUTO_PATHS`` must run a partitioned shuffle join
+        whose ``describe()`` line names its right frame as the map says;
+        the hot join's must have both heavy keys and light keys (keys
+        with pairs that stay in the exchange), which ``rec`` gets."""
+        if name not in AUTO_PATHS:
+            return
+        lines = [ln for ln in rec["describe"]
+                 if ln.startswith("partitioned shuffle join ")]
+        if not any(AUTO_PATHS[name] in ln for ln in lines):
+            raise AssertionError(f"{name}: no partitioned shuffle join with "
+                                 f"{AUTO_PATHS[name]}: {rec['describe']}")
+        if name != "hot_join":
+            return
+        (pj,) = rec["part_joins"]
+        sides = hot_join_sides(self.st)
+        paired = sides["keys"][(sides["lc"].sum(0) * sides["rc"]) > 0]
+        pj["light_keys"] = [int(k) for k in paired
+                            if k not in pj["heavy_keys"]]
+        pj["oracle_pairs"] = int(sides["lc"].sum(0) @ sides["rc"])
+        if not (pj["n_heavy"] > 0 and pj["light_keys"]
+                and set(pj["heavy_keys"]) <= set(paired.tolist())
+                and pj["pairs"] == pj["oracle_pairs"]):
+            raise AssertionError(f"hot_join: {pj}, keys with pairs "
+                                 f"{paired.tolist()}")
+
     def single_device_ms(self, vexps, check):
         """The median of 3 warm calls of the single-device engine on
         ``vexps`` over the phase-3 store, after one call held to
@@ -3122,7 +3376,8 @@ class Smoke:
         """Phase 9: the JAX package's CPU plan census
         (tests/torch_census_cases.py: 40 fuzz, 40 ordered fuzz, 7
         null-semantics, 5 join-corner, 2 semi/anti and 2 count(DISTINCT)
-        plans) and the fourteen in-code plans, through
+        plans) and the plans of phase 8 (AUTO_PLANS) but CENSUS_SKIP's,
+        through
         ``vir.vexps_from_mplan`` + ``passes.engine_passes`` +
         ``CompiledQuery`` on the card over a store of scale ``sf``, each
         result held against the port's relational oracle as rows (the
@@ -3135,7 +3390,6 @@ class Smoke:
         ``{"census": ...}`` line per family; the engine kernels' counters
         are read around the phase, and each of them must have launched."""
         import concurrent.futures as cf
-        import importlib
         import multiprocessing
 
         import numpy as np
@@ -3150,10 +3404,7 @@ class Smoke:
             sys.path.insert(0, tests)
         import torch_census_cases as census
 
-        counters = {
-            k: (importlib.import_module(
-                f"mplan2vdl_tpu_torch.engine.kernels.{mod}"), attr)
-            for k, (mod, attr) in COUNTERS.items()}
+        counters = kernel_counters()
         t_phase = time.perf_counter()
         st = datagen.generate(sf=sf, seed=self.args.seed)
         cfg = st.make_catalog()
@@ -3277,17 +3528,13 @@ class Smoke:
         calls, the i-th call runs in a range named after the index of
         ``gather_calls[i]`` and must have that class's shape, the warm call
         must make as many, and each class's device time is returned."""
-        import importlib
-
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile, record_function
 
         from mplan2vdl_tpu_torch.engine import lower
         from mplan2vdl_tpu_torch.engine.kernels import _lib
 
-        counters = {k: (importlib.import_module(
-            f"mplan2vdl_tpu_torch.engine.kernels.{mod}"), attr)
-            for k, (mod, attr) in COUNTERS.items()}
+        counters = kernel_counters()
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
         gather_many, tagged = lower.gather_many, []
@@ -3409,7 +3656,7 @@ class Smoke:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--sf", type=float, default=10.0,
+    ap.add_argument("--sf", type=float, default=CARD_SF,
                     help="TPC-H scale factor of the generated store")
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--out", default=None,
@@ -3433,15 +3680,19 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     s = Smoke(args)
-    s.card()
-    s.build()
-    s.store()
-    s.kernel_phase()
-    s.query_phase()
-    s.probe_phase()
-    s.cli_phase()
-    s.dist_phase(phases=("dist", "auto"))
-    s.census_phase()
+    s.records["phase_s"] = {}
+    for name, phase in (("card", s.card), ("build", s.build),
+                        ("store", s.store), ("kernels", s.kernel_phase),
+                        ("queries", s.query_phase), ("probes", s.probe_phase),
+                        ("cli", s.cli_phase),
+                        ("dist and auto", lambda: s.dist_phase(
+                            phases=("dist", "auto"))),
+                        ("census", s.census_phase)):
+        t = time.perf_counter()
+        phase()
+        s.records["phase_s"][name] = time.perf_counter() - t
+        print(json.dumps({"phase_s": name, "s": s.records["phase_s"][name]}),
+              flush=True)
     summary = s.summary()
     s.records["summary"] = summary
     s.records["wall_s"] = time.perf_counter() - t0

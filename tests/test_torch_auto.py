@@ -10,7 +10,8 @@ the DAG (``torch_auto_cases.canon_map``: interning numbers differ between
 the packages), and the port's ``NotDistributable`` decision, with its
 text, JAX's, also under each of the two switches (MPLAN2VDL_NO_PART_JOIN,
 MPLAN2VDL_NO_SPARSE_JOIN).  The analysis functions themselves are checked to be the same
-code as JAX's, docstrings aside.
+code as JAX's, docstrings aside.  ``chip_smoke.EXPECTED_NOT_DISTRIBUTABLE``
+is JAX's verdict at the key widths of the card's scale.
 """
 
 import ast
@@ -72,11 +73,14 @@ def stores():
     def get(pkg, which):
         if (pkg, which) not in cache:
             datagen = PKGS[pkg][1]
-            if which == "cli":
+            if which in ("cli", "card_keys"):
                 st = datagen.generate(sf=A.CLI_SF, seed=A.CLI_SEED)
             else:
                 st = A.make_store(datagen, which)
-            cache[pkg, which] = (st, st.make_catalog())
+            cfg = st.make_catalog()
+            if which == "card_keys":
+                A.widen_keys(cfg, chip_smoke.CARD_SF)
+            cache[pkg, which] = (st, cfg)
         return cache[pkg, which]
 
     return get
@@ -84,10 +88,11 @@ def stores():
 
 def _vexps(stores, pkg, case):
     package, _, lower, _ = PKGS[pkg]
-    if case.startswith("cli_"):
-        st, cfg = stores(pkg, "cli")
-        return st, cfg, lower.plan_to_vexps(chip_smoke.AUTO_PLANS[case[4:]],
-                                            cfg)
+    if case.startswith(("cli_", "card_keys_")):
+        which, plan = (("card_keys", case[10:]) if case.startswith("card")
+                       else ("cli", case[4:]))
+        st, cfg = stores(pkg, which)
+        return st, cfg, lower.plan_to_vexps(chip_smoke.AUTO_PLANS[plan], cfg)
     st, cfg = stores(pkg, A.store_of(case))
     return st, cfg, A.case_vexps(package, case, st, cfg)[0]
 
@@ -228,6 +233,32 @@ def test_not_distributable_decision_matches_jax(stores, case):
     device, with the same text."""
     got, want = _decisions(stores, case)
     assert got == want
+
+
+@pytest.mark.parametrize("plan", sorted(chip_smoke.AUTO_PLANS))
+def test_expected_not_distributable_is_jax_verdict(stores, plan):
+    """chip_smoke.EXPECTED_NOT_DISTRIBUTABLE holds JAX's verdict on each
+    plan of phase 8 at the key widths of the card's scale (CARD_SF's key
+    bounds over the CLI store): the refusal's text for the plans it names,
+    and none for the rest; the port decides the same."""
+    got, want = _decisions(stores, f"card_keys_{plan}")
+    assert got == want == chip_smoke.EXPECTED_NOT_DISTRIBUTABLE.get(plan)
+
+
+def test_card_keys_are_the_generators():
+    """widen_keys gives each key column the generator's bounds (checked at
+    a small scale, where they can be generated): a primary key's exactly,
+    a foreign key's (drawn at random) from above, within 1%."""
+    sf = 0.003
+    want = tdatagen.generate(sf=sf, seed=A.CLI_SEED).make_catalog()
+    got = A.widen_keys(tdatagen.generate(sf=A.CLI_SF, seed=A.CLI_SEED)
+                       .make_catalog(), sf)
+    for col in A.KEY_COLUMNS:
+        (lo, hi), (wlo, whi) = (c.colinfo.lookup(col)[1].bounds
+                                for c in (got, want))
+        assert lo == wlo == 1 and whi <= hi <= whi * 1.01, col
+        if col[1] in ("o_orderkey", "p_partkey", "s_suppkey", "c_custkey"):
+            assert hi == whi, col
 
 
 # the switches of both packages' distributor: the replicated right side for

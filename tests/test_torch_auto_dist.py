@@ -9,7 +9,10 @@ Every rank must return JAX's rows (as multisets: the engines may order
 join pairs within equal keys differently; ordered plans in order), JAX's
 ``describe()`` text or ``NotDistributable`` text, and the single-device
 port's rows.  TPC-H Q17 distributes in the port; the JAX group stage
-raises on it (a fault of the reference, named in its test).  Q13 and the
+raises on it (a fault of the reference, named in its test), and so does
+it on PLAN_DENSE_JOIN, a join of the same shape.  The plans
+chip_smoke phase 8 runs for their partitioned joins take them as JAX
+does (the hot join's heavy keys included).  Q13 and the
 self-join run again with MPLAN2VDL_NO_PART_JOIN=1, and a world of 8 ranks runs
 plans over a store whose tables leave its last ranks with empty windows
 (``torch_auto_cases.SMALL_CASES``) against a JAX mesh of 8 devices.
@@ -26,6 +29,9 @@ import torch_dist_cases as C
 
 WORLDS = (4, 1)
 PLANS = sorted(chip_smoke.AUTO_PLANS)
+# plans whose distribution the JAX group stage raises on (see
+# test_q17_distributes_where_jax_raises)
+JAX_RAISES = ("q17", "dense_join")
 # plans whose row order the plan fixes (a rowset in fact-row order, ORDER BY
 # without ties)
 IN_ORDER = ("filter_project", "q4", "q16")
@@ -43,8 +49,8 @@ def ranks(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def jax_side():
-    """plan -> world -> ("rows", cols, describe) | ("nd", text) |
-    ("error", exception), computed on first use."""
+    """plan -> world -> ("rows", cols, describe, heavy plan) | ("nd",
+    text) | ("error", exception), computed on first use."""
     from mplan2vdl_tpu.engine import datagen
     from mplan2vdl_tpu.engine.lower import plan_to_vexps
 
@@ -66,7 +72,8 @@ def jax_side():
             try:
                 dq = auto.distribute(cfg, st, vexps, mesh)
                 cols = [c for _, _, c in dq()]
-                cache[key] = ("rows", cols, A.canon_describe(dq, _children))
+                cache[key] = ("rows", cols, A.canon_describe(dq, _children),
+                              A.heavy_plan(dq.part_joins))
             except auto.NotDistributable as e:
                 cache[key] = ("nd", str(e))
             except RuntimeError as e:
@@ -95,7 +102,7 @@ def _same(got, want, in_order):
 
 
 @pytest.mark.parametrize("world", WORLDS)
-@pytest.mark.parametrize("plan", [p for p in PLANS if p != "q17"])
+@pytest.mark.parametrize("plan", [p for p in PLANS if p not in JAX_RAISES])
 def test_rows_match_jax(ranks, jax_side, plan, world):
     """Every rank's rows are JAX's, and the single-device port's."""
     want = jax_side(plan, world)
@@ -110,7 +117,7 @@ def test_rows_match_jax(ranks, jax_side, plan, world):
 
 
 @pytest.mark.parametrize("world", WORLDS)
-@pytest.mark.parametrize("plan", [p for p in PLANS if p != "q17"])
+@pytest.mark.parametrize("plan", [p for p in PLANS if p not in JAX_RAISES])
 def test_describe_matches_jax(ranks, jax_side, plan, world):
     """The distribution plan prints as JAX's, partitioned joins' exact
     capacities and pair counts included (their skeys as places in the
@@ -120,6 +127,36 @@ def test_describe_matches_jax(ranks, jax_side, plan, world):
         assert str(res["describe"]) == want[2]
     if plan == "q13":  # the dim-frame shuffle join over orders
         assert "partitioned shuffle join" in want[2]
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("plan", sorted(chip_smoke.AUTO_PATHS))
+def test_partitioned_paths_match_jax(ranks, jax_side, plan, world):
+    """The plans of phase 8 that must take a partitioned shuffle join take
+    it as JAX does, with the right frame chip_smoke.AUTO_PATHS names:
+    the hot join's heavy-key round finds JAX's heavy keys, build counts
+    and capacities, leaving keys with pairs in the exchange; the nation
+    count shards orders as an outer right frame; the self-join has no
+    heavy key."""
+    from mplan2vdl_tpu_torch.engine import datagen
+
+    want = jax_side(plan, world)
+    assert want[0] == "rows", want
+    assert chip_smoke.AUTO_PATHS[plan] in want[2]
+    for res in ranks[world].case(f"cli_{plan}"):
+        assert str(res["heavy_plan"]) == want[3]
+        assert int(res["part_joins"]) == 1
+        assert str(res["part_tables"]) == (
+            "orders" if plan == "q13_nation" else "fact")
+        assert str(res["part_outer"]) == str(plan == "q13_nation")
+        assert int(res["heavy"]) == (plan == "hot_join")
+    if plan != "hot_join":
+        return
+    sides = chip_smoke.hot_join_sides(datagen.generate(sf=A.CLI_SF,
+                                                       seed=A.CLI_SEED))
+    paired = set(sides["keys"][sides["lc"].sum(0) * sides["rc"] > 0].tolist())
+    hk = {int(k) for k in want[3].split()[0][3:].split(",")} & paired
+    assert hk and paired - hk
 
 
 @pytest.mark.parametrize("world", WORLDS)
@@ -148,6 +185,28 @@ def test_q17_distributes_where_jax_raises(ranks, jax_side, world):
         got = _cols(res, "c")
         _same(got, _cols(res, "s"), True)
         _same(got, oracle, True)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_dense_join_distributes_where_jax_raises(ranks, jax_side, world):
+    """PLAN_DENSE_JOIN (lineitem against its per-l_shipdate average, Q17's
+    decorrelated shape) meets the same fault of the JAX group stage as
+    Q17; every rank of the port returns the single-device port's rows and
+    chip_smoke.oracle_dense_join's."""
+    from mplan2vdl_tpu_torch.engine import datagen
+
+    want = jax_side("dense_join", world)
+    assert want[0] == "error", want
+    assert "JoinIndex size not resolved" in str(want[1])
+    oracle = chip_smoke.oracle_dense_join(datagen.generate(
+        sf=A.CLI_SF, seed=A.CLI_SEED))
+    assert len(oracle[0]) > 1
+    for res in ranks[world].case("cli_dense_join"):
+        assert str(res["nd"]) == ""
+        got = _cols(res, "c")
+        _same(got, _cols(res, "s"), False)
+        _same(got, oracle, False)
+        assert "group domain:" in str(res["describe"])
 
 
 @pytest.mark.parametrize("world", WORLDS)
@@ -263,13 +322,11 @@ def test_more_ranks_than_rows_match_jax(small_ranks, small_jax, case):
 
 
 # ------------------------------------------------------ chip_smoke phase 8
-def test_chip_smoke_auto_phase_on_cpu(tmp_path, monkeypatch, capsys):
-    """Phase 8 of chip_smoke.py dry-run on the CPU (one gloo rank, SF
-    0.01): every in-code plan distributes, passes its oracle and prints a
-    timed ``{"auto": ...}`` line; the compaction and gather launches are
-    counted through wrappers (the plain versions count nothing), so the
-    phase's launch check runs too."""
-    import json
+def _auto_smoke(monkeypatch):
+    """A ``Smoke`` on the CPU over an SF 0.01 store, with no-op CUDA
+    timing calls and the compaction and gather counted through wrappers
+    (the plain versions count nothing), so the phase's launch check
+    runs too."""
     import types
 
     import torch
@@ -298,6 +355,20 @@ def test_chip_smoke_auto_phase_on_cpu(tmp_path, monkeypatch, capsys):
     s.records = {"queries": []}
     s.st = datagen.generate(sf=0.01, seed=1)
     s.cfg = s.st.make_catalog()
+    return s
+
+
+def test_chip_smoke_auto_phase_on_cpu(tmp_path, monkeypatch, capsys):
+    """Phase 8 of chip_smoke.py dry-run on the CPU (one gloo rank, SF
+    0.01): every plan distributes (at this scale PLAN_DISTINCT_WIDE's key
+    fits), passes its oracle and prints a timed ``{"auto": ...}`` line;
+    the hot join's heavy-key round leaves light keys, and the nation count
+    partitions orders."""
+    import json
+
+    import torch
+
+    s = _auto_smoke(monkeypatch)
     s.dist_phase(coordinator="file://" + str(tmp_path / "store"),
                  phases=("auto",))
     assert not torch.distributed.is_initialized()
@@ -309,6 +380,48 @@ def test_chip_smoke_auto_phase_on_cpu(tmp_path, monkeypatch, capsys):
         assert c["world_size"] == 1 and len(c["warm_ms"]) == 3
         assert c["rows_out"] > 0 and c["describe"][0].startswith(
             "fact table: ")
+    by = {c["auto"]: c for c in cells}
+    (hot,) = by["hot_join"]["part_joins"]
+    assert hot["right"] == "fact frame" and hot["n_heavy"] > 0
+    assert hot["light_keys"] and hot["pairs"] == hot["oracle_pairs"]
+    (nation,) = by["q13_nation"]["part_joins"]
+    assert nation["right"] == "orders" and nation["outer"]
     end = json.loads(next(ln for ln in out if '"auto_phase_s"' in ln))
     assert end["auto_launches"]["compact"] > 0
     assert end["auto_launches"]["gather"] > 0
+
+
+@pytest.mark.parametrize("expected", [{}, {"q6": "other text"},
+                                      {"q6": "refused"}])
+def test_chip_smoke_auto_phase_fails_on_a_refusal(tmp_path, monkeypatch,
+                                                  capsys, expected):
+    """A plan that auto.distribute refuses fails phase 8 unless
+    EXPECTED_NOT_DISTRIBUTABLE names it with the refusal's text; then
+    its ``{"auto": ...}`` line holds the text and the phase goes on."""
+    import json
+
+    from mplan2vdl_tpu_torch.parallel import auto
+
+    distribute, calls = auto.distribute, []
+
+    def refuse_first(*args):  # the first plan, q6
+        calls.append(1)
+        if len(calls) == 1:
+            raise auto.NotDistributable("refused")
+        return distribute(*args)
+
+    monkeypatch.setattr(auto, "distribute", refuse_first)
+    monkeypatch.setattr(chip_smoke, "AUTO_PLANS", {
+        k: chip_smoke.AUTO_PLANS[k] for k in ("q6", "q3")})
+    monkeypatch.setattr(chip_smoke, "EXPECTED_NOT_DISTRIBUTABLE", expected)
+    s = _auto_smoke(monkeypatch)
+    store = "file://" + str(tmp_path / "store")
+    if expected.get("q6") != "refused":
+        with pytest.raises(AssertionError,
+                           match="q6 is not distributable: refused"):
+            s.dist_phase(coordinator=store, phases=("auto",))
+        return
+    s.dist_phase(coordinator=store, phases=("auto",))
+    cells = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith('{"auto": ')]
+    assert [c.get("not_distributable") for c in cells] == ["refused", None]

@@ -17,6 +17,8 @@ CPU.
   other distinct plan of the phase fewer than 40.
 * The four new plans through the port and the JAX engine, with the port's
   path spies, and against their numpy oracles.
+* Phase 4's Semisort run (a hand-built VIR DAG) at SF 0.01: it passes,
+  and a wrong permutation fails it.
 """
 
 import json
@@ -122,7 +124,8 @@ def test_chip_smoke_census_phase_on_cpu(monkeypatch, capsys):
         "fuzz", "fuzz_fused", "fuzz_mxu", "ordered", "null", "corners",
         "semi_anti", "distinct", "tpch"]
     want = {"fuzz": 40, "ordered": 40, "null": 7, "corners": 5,
-            "semi_anti": 2, "distinct": 2, "tpch": len(chip_smoke.AUTO_PLANS)}
+            "semi_anti": 2, "distinct": 2,
+            "tpch": len(chip_smoke.AUTO_PLANS) - len(chip_smoke.CENSUS_SKIP)}
     for ln in lines:
         family = "fuzz" if ln["census"].startswith("fuzz") else ln["census"]
         assert ln["plans"] == ln["checked"] == want[family], ln
@@ -173,7 +176,7 @@ def test_chip_smoke_query_phase_on_cpu(monkeypatch, capsys):
     assert list(paths) == [chip_smoke.DENSE_JOIN_RUN,
                            chip_smoke.DISTINCT_DENSE_RUN,
                            chip_smoke.DISTINCT_WIDE_RUN,
-                           chip_smoke.Q4_ALL_RUN]
+                           chip_smoke.Q4_ALL_RUN, chip_smoke.SEMISORT_RUN]
     dj = paths[chip_smoke.DENSE_JOIN_RUN]
     assert dj["dense_joins"] == 1 and {j["path"] for j in dj["joins"]} == {
         "dense"}
@@ -194,6 +197,50 @@ def test_chip_smoke_query_phase_on_cpu(monkeypatch, capsys):
         "launches"]
     assert {c["order"] for c in census["gather_census"]} == {
         "consecutive", "ascending", "unordered"}
+
+
+def _semisort_smoke():
+    s = _smoke(0.01)
+    s.st = datagen.generate(sf=0.01, seed=1)
+    s.cfg = s.st.make_catalog()
+    return s
+
+
+def test_chip_smoke_semisort_run_on_cpu(monkeypatch, capsys):
+    """Phase 4's Semisort run at SF 0.01: the fold's buffer has padding
+    past its valid rows, the permutation is the stable argsort of the
+    whole buffer, and the run prints one timed ``{"path": "Semisort"}``
+    line."""
+    _count_launches(monkeypatch)
+    s = _semisort_smoke()
+    s.semisort_run()
+    out = capsys.readouterr().out.splitlines()
+    (rec,) = [json.loads(ln) for ln in out if ln.startswith('{"path": ')]
+    orders = len(np.unique(s.st.columns[("lineitem", "l_orderkey")]))
+    assert rec["path"] == chip_smoke.SEMISORT_RUN
+    assert rec["valid"] == orders and rec["padding"] == rec["n"] - orders > 0
+    assert len(rec["ms"]) == 5 and rec["median_ms"] > 0
+    assert s.records["semisort"] == rec
+
+
+def test_chip_smoke_semisort_run_fails_on_a_wrong_permutation(monkeypatch):
+    """A permutation that is not the stable argsort ends the run: here the
+    Semisort node's permutation comes back reversed."""
+    from mplan2vdl_tpu_torch import vir
+
+    _count_launches(monkeypatch)
+    evaluate = lower.Compiler._eval
+
+    def reversed_semisort(c, v):
+        out = evaluate(c, v)
+        if isinstance(v.vx, vir.Semisort):
+            out = lower.Val(data=out.data.flip(0), valid=out.valid,
+                            length=out.length)
+        return out
+
+    monkeypatch.setattr(lower.Compiler, "_eval", reversed_semisort)
+    with pytest.raises(AssertionError, match="Semisort: the permutation"):
+        _semisort_smoke().semisort_run()
 
 
 def test_profile_names_each_gather_by_the_first_runs_class(

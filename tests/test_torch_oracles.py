@@ -322,3 +322,42 @@ def test_q4_all_oracle_matches_sqlite_and_port(store_db):
     """))
     assert len(got) > 1 and got == want
     assert _in_order(_port_run(store, chip_smoke.PLAN_Q4_ALL), [prio, count])
+
+
+# -------------------------- the plans of phase 8's partitioned-join paths
+def test_hot_join_oracle_matches_sqlite(store_db):
+    """The 1994 lineitems joined on l_linenumber with the lines of the
+    first orders: SQLite expands the pairs, the oracle counts them by
+    key."""
+    store, db = store_db
+    cols = chip_smoke.oracle_hot_join(store)
+    got = sorted(zip(*[np.asarray(c, np.int64).tolist() for c in cols]))
+    want = sorted(tuple(r) for r in db.execute("""
+        SELECT l.l_returnflag, COUNT(*), SUM(l.l_quantity),
+               SUM(r.l_extendedprice)
+        FROM lineitem AS l JOIN lineitem AS r
+          ON l.l_linenumber = r.l_linenumber
+        WHERE l.l_shipdate >= '1994-01-01' AND l.l_shipdate < '1995-01-01'
+          AND r.l_orderkey < 9
+        GROUP BY l.l_returnflag
+    """))
+    assert len(got) > 1 and got == want
+    sides = chip_smoke.hot_join_sides(store)
+    assert sides["rc"].sum() == db.execute(
+        "SELECT COUNT(*) FROM lineitem WHERE l_orderkey < 9").fetchone()[0]
+
+
+def test_q13_nation_oracle_matches_sqlite(store_db):
+    store, db = store_db
+    cols = chip_smoke.oracle_q13_nation(store)
+    got = sorted(zip(*[np.asarray(c, np.int64).tolist() for c in cols]))
+    want = sorted(tuple(r) for r in db.execute("""
+        SELECT c_nationkey, COUNT(o_orderkey), COUNT(*)
+        FROM customer LEFT OUTER JOIN orders
+          ON c_custkey = o_custkey
+         AND o_comment NOT LIKE '%special%requests%'
+        GROUP BY c_nationkey
+    """))
+    assert len(got) > 1 and got == want
+    # some customers have no order: rows exceed orders somewhere
+    assert any(n_rows > n_orders for _, n_orders, n_rows in got)

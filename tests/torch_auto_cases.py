@@ -54,6 +54,39 @@ SMALL_WORLD = 8
 # rank holds one row), and two self-joins that partition
 SMALL_CASES = ["small_outer", "small_plain", "small_rowset", "small_q13",
                "small_join2", "small_hot"]
+# the key columns whose upper bound grows with the scale factor, each with
+# the generator's row count of the table it numbers at scale sf
+# (datagen.generate: keys 1..count)
+KEY_COUNTS = {"orders": lambda sf: max(int(1_500_000 * sf), 150),
+              "part": lambda sf: max(int(200_000 * sf), 20),
+              "supplier": lambda sf: max(int(10_000 * sf), 10),
+              "customer": lambda sf: max(int(150_000 * sf), 15)}
+KEY_COLUMNS = {("lineitem", "l_orderkey"): "orders",
+               ("orders", "o_orderkey"): "orders",
+               ("lineitem", "l_partkey"): "part",
+               ("part", "p_partkey"): "part",
+               ("partsupp", "ps_partkey"): "part",
+               ("lineitem", "l_suppkey"): "supplier",
+               ("supplier", "s_suppkey"): "supplier",
+               ("partsupp", "ps_suppkey"): "supplier",
+               ("orders", "o_custkey"): "customer",
+               ("customer", "c_custkey"): "customer"}
+
+
+def widen_keys(cfg, sf: float):
+    """``cfg`` (either package's catalog) with the bounds of every key
+    column of KEY_COLUMNS set to its range at scale ``sf``, so that a plan
+    lowers with the key widths of that scale over a small store: the
+    distributor's analysis decides from those widths."""
+    import dataclasses
+
+    for col, table in KEY_COLUMNS.items():
+        _, info = cfg.colinfo.lookup(col)
+        cfg.colinfo.insert_weak(col, dataclasses.replace(
+            info, bounds=(1, KEY_COUNTS[table](sf))))
+    return cfg
+
+
 # (sf, seed) of each case's store, as the JAX tests generate them
 STORES = {"fuzz": (0.002, 2), "hot_key": (0.002, 4), "distinct": (0.02, 11),
           "null": (0.01, 7), "small": (0.00001, 1)}
@@ -366,13 +399,29 @@ def _names(cols) -> str:
     return ",".join(".".join(nm) for nm in cols)
 
 
+def heavy_plan(part_joins) -> str:
+    """The heavy-key round's outcome of each partitioned join of a
+    distributed plan (either package's ``part_joins``): the sentinel-padded
+    heavy keys, their build counts and the two exact capacities, or
+    ``none``; joins separated by ``|``."""
+    out = []
+    for pj in part_joins.values():
+        h = pj["caps"]["heavy"]
+        out.append("none" if not h else (
+            "hk=" + ",".join(str(int(k)) for k in np.asarray(h["hk"]))
+            + " rcnt=" + ",".join(str(int(k)) for k in np.asarray(h["rcnt"]))
+            + f" cap_hb={int(h['cap_hb'])} cap_hp={int(h['cap_hp'])}"))
+    return "|".join(out)
+
+
 def _distributed(mesh, cfg, store, vexps):
     """{"nd": NotDistributable text or "", "describe": ``canon_describe``,
     "c{i}": rows, "s{i}": the single-device port's rows, "part_joins": how
     many partitioned joins, "heavy": how many of them found heavy keys,
-    "part_tables", "part_outer", "dim_loads", "part_loads", "extra_full":
-    the partitioned joins' right tables (``fact`` for the fact frame) and
-    outer flags, and the column lists of the distribution plan}."""
+    "heavy_plan": ``heavy_plan``, "part_tables", "part_outer",
+    "dim_loads", "part_loads", "extra_full": the partitioned joins' right
+    tables (``fact`` for the fact frame) and outer flags, and the column
+    lists of the distribution plan}."""
     from mplan2vdl_tpu_torch.engine.lower import CompiledQuery, _children
     from mplan2vdl_tpu_torch.parallel import auto
 
@@ -388,6 +437,7 @@ def _distributed(mesh, cfg, store, vexps):
                part_joins=len(dq.part_joins),
                heavy=sum(bool(pj["caps"]["heavy"])
                          for pj in dq.part_joins.values()),
+               heavy_plan=heavy_plan(dq.part_joins),
                part_tables=",".join(pj["table"] or "fact"
                                     for pj in dq.part_joins.values()),
                part_outer=",".join(str(pj["outer"])
