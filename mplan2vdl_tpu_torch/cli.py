@@ -22,7 +22,12 @@ Run a plan on the engine against a generated dataset, or against dbgen
         [--roofline [--hbm-gbps GBPS]] [--devices N [--explain-dist]]
 
 ``run`` uses the GPU; without one it fails unless ``--cpu`` asks for the
-CPU.  ``--profile DIR`` writes a torch.profiler trace of the call;
+CPU.  ``--profile DIR`` writes a torch.profiler trace of the call
+(``trace.json``), its op table (``ops.txt``) and its program spans
+(``spans.txt``: one row per span name of ``tracing``, ``m2v_query``,
+``m2v_node.<kind>``, ``m2v_sync.<site>``, ...: calls, host ms, host self
+ms, and on the GPU the device ms of the work launched inside the span and
+the device's idle ms while it was the host's innermost span);
 ``--roofline`` prints ``CompiledQuery.cost_report`` on stderr, with the
 floor times only when ``--hbm-gbps`` gives the device's memory rate (it has
 no default).
@@ -206,11 +211,12 @@ def cmd_explain(args):
 
 def _profiled_call(runner, device, out_dir):
     """One call of ``runner`` under torch.profiler: CPU activity, and CUDA
-    activity on the GPU.  Writes ``trace.json`` (a Chrome trace) and
+    activity on the GPU.  Writes ``trace.json`` (a Chrome trace),
     ``ops.txt`` (``key_averages`` by self device time; by self CPU time on
-    the CPU) into ``out_dir`` and returns the call's result.  The columns
-    are on ``device`` (the caller put them there) and the kernel library
-    loads before the session opens, so the trace holds the call alone.
+    the CPU) and ``spans.txt`` (``tracing.span_table``) into ``out_dir``
+    and returns the call's result.  The columns are on ``device`` (the
+    caller put them there) and the kernel library loads before the session
+    opens, so the trace holds the call alone.
     Each kernel launch is a range named after its C entry point
     (``m2v_gather``, ...).  On the GPU it raises when the profiler recorded
     no device activity: a trace without the card's kernels is not
@@ -220,6 +226,8 @@ def _profiled_call(runner, device, out_dir):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from . import tracing
+
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         from .engine.kernels import _lib
@@ -227,6 +235,7 @@ def _profiled_call(runner, device, out_dir):
         _lib.lib()
         torch.cuda.synchronize(device)
         acts.append(ProfilerActivity.CUDA)
+    tracing.clear()
     with profile(activities=acts) as prof:
         res = runner()
     avg = prof.key_averages()
@@ -241,6 +250,8 @@ def _profiled_call(runner, device, out_dir):
     with open(os.path.join(out_dir, "ops.txt"), "w") as f:
         f.write(avg.table(sort_by=sort, row_limit=-1,
                           max_name_column_width=100))
+    with open(os.path.join(out_dir, "spans.txt"), "w") as f:
+        f.write(tracing.span_table(prof))
     return res
 
 
@@ -498,8 +509,8 @@ def main(argv=None):
                     help="name FK join-index columns %%<tab>_fkN (the "
                          "monetpch/simple corpora's convention)")
     pr.add_argument("--profile", metavar="DIR",
-                    help="write a torch.profiler trace of the call and its "
-                         "op table into DIR")
+                    help="write a torch.profiler trace of the call, its "
+                         "op table and its program spans into DIR")
     pr.add_argument("--roofline", action="store_true",
                     help="print memory-roofline accounting (scan bytes, "
                          "bytes accessed, amplification; floor times with "

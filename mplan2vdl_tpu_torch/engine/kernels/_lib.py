@@ -22,6 +22,8 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from ... import tracing
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 SOURCES = ("compact.cu", "gather.cu", "multiagg.cu", "multiagg_mxu.cu",
@@ -36,7 +38,6 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 # the C entry points of _SIGNATURES, resolved once when the library loads
 _entries: Dict[str, Callable[..., int]] = {}
-_profiling = torch.autograd._profiler_enabled
 # the cheapest public read of a device's current stream (a torch.Stream,
 # made in C++; torch.cuda.current_stream builds a Python object, ~2.5x
 # the host time)
@@ -159,10 +160,11 @@ def _load() -> ctypes.CDLL:
 
 def call(name: str, *args) -> int:
     """Calls the C entry point ``name`` (a kernel launch) and returns its
-    error code.  While torch.profiler records, the call is a range named
-    ``name``, so a trace names each launch beside its kernel."""
+    error code.  While torch.profiler records (``tracing.recording``), the
+    call is a range named ``name``, so a trace names each launch beside its
+    kernel."""
     fn = _entries.get(name) or getattr(lib(), name)
-    if not _profiling():
+    if not tracing.recording():
         return fn(*args)
     with torch.profiler.record_function(name):
         return fn(*args)

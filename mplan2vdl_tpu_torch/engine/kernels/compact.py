@@ -16,6 +16,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ... import tracing
 from . import _lib
 
 INT32_MAX = 2**31 - 1
@@ -94,6 +95,7 @@ class Lookback:
 _scratch: Dict[Tuple[int, int], Tuple[Lookback, Optional[torch.Tensor]]] = {}
 
 
+@tracing.kernel
 def compact_positions(mask: torch.Tensor,
                       n_out: Optional[int] = None) -> torch.Tensor:
     """int32 positions of ``mask``'s true rows, ascending; entries past the

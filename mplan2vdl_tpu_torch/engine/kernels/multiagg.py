@@ -23,6 +23,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from ... import tracing
 from . import _lib
 
 LIMB_BITS = 16
@@ -110,6 +111,7 @@ def reference_group_aggregate(cols: Sequence[torch.Tensor],
     return out
 
 
+@tracing.kernel
 def fused_group_aggregate(cols: Sequence[torch.Tensor], gid: torch.Tensor,
                           specs: Sequence[AggSpec],
                           n_groups: int) -> torch.Tensor:

@@ -33,6 +33,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from ... import tracing
 from . import _lib
 from .multiagg import AggSpec, spec_words
 
@@ -156,6 +157,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+@tracing.kernel
 def fused_group_aggregate_mxu(cols: Sequence[torch.Tensor], gid: torch.Tensor,
                               specs: Sequence[AggSpec], n_groups: int,
                               *, max_blocks: int = 0,

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ... import tracing
 from . import _lib
 
 _DTYPES = (torch.int32, torch.int64)
@@ -39,6 +40,7 @@ def monotone_scatter_plain(pos: torch.Tensor, src: torch.Tensor,
     return out
 
 
+@tracing.kernel
 def monotone_scatter(pos: torch.Tensor, src: torch.Tensor,
                      L: int) -> torch.Tensor:
     """``out[pos[i]] = src[i]`` over ``L`` slots, 0 where no row writes.

@@ -30,6 +30,7 @@ from typing import List, Sequence, Union
 
 import torch
 
+from ... import tracing
 from . import _lib
 
 _DTYPES = (torch.int32, torch.int64)
@@ -130,6 +131,7 @@ def _small_gather(srcs: List[torch.Tensor],
     return outs
 
 
+@tracing.kernel
 def gather_many(srcs: Sequence[torch.Tensor], pos: torch.Tensor,
                 valid: Valid, small: bool = False) -> List[torch.Tensor]:
     """``[s[p] for s in srcs]``; sources share a length and may mix int32

@@ -43,6 +43,7 @@ import torch
 
 from .. import device as D
 from .. import mplan as M
+from .. import tracing
 from .. import vir as V
 from ..catalog import ColInfo, Config
 from ..mtypes import DDate, DDecimal, DString, INT32_MAX, INT32_MIN
@@ -101,16 +102,6 @@ class Val:
     valid: Union[int, torch.Tensor]
     length: int  # buffer length
     lazy_range: Optional[Tuple[int, int]] = None  # (rmin, rstep) when data is None
-
-
-def _i64(x, device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.int64, device=device)
-
-
-def _vmin(a, b, device):
-    if isinstance(a, int) and isinstance(b, int):
-        return min(a, b)
-    return torch.minimum(_i64(a, device), _i64(b, device))
 
 
 def _sel_positions(mask: torch.Tensor, n_out: Optional[int] = None
@@ -207,30 +198,6 @@ def _changes(x: torch.Tensor) -> torch.Tensor:
     return x != torch.cat([x[:1] - 1, x[:-1]])
 
 
-def _run_ends(starts: torch.Tensor, nruns, nvalid, n: int) -> torch.Tensor:
-    """The last sorted row of each run, from the runs' first rows
-    ``starts`` (ascending, int64), the run count and the count of valid
-    sorted rows; 0 past ``nruns``."""
-    dev = starts.device
-    next_start = torch.cat([starts[1:], _i64([n], dev)])
-    kidx = torch.arange(starts.shape[0], device=dev)
-    ends = torch.where(kidx + 1 < nruns, next_start - 1, _i64(0, dev))
-    return torch.where(kidx + 1 == nruns, nvalid - 1, ends)
-
-
-def _run_sums(cs: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
-              nruns) -> torch.Tensor:
-    """Each run's sum from the inclusive int64 prefix sum ``cs`` of the
-    sorted rows: ``cs[end] - cs[start - 1]``; 0 past ``nruns``."""
-    dev, n = cs.device, cs.shape[0]
-    zero = _i64(0, dev)
-    at_end = cs[torch.clamp(ends, 0, n - 1)]
-    before = torch.where(starts > 0, cs[torch.clamp(starts - 1, 0, n - 1)],
-                         zero)
-    kmask = torch.arange(starts.shape[0], device=dev) < nruns
-    return torch.where(kmask, at_end - before, zero)
-
-
 def _sort_pairs(ids: torch.Tensor, vals: torch.Tensor, domain: int,
                 vlo: int, vhi: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The (id, value) pairs sorted by id, then value: (sorted ids, whether
@@ -264,7 +231,9 @@ class Compiler:
     batch into one gather; ``lookups`` holds the Like/DictMap tables across
     calls (the owner keeps it, so each is built once per compiled query).
     After a call, ``join_log`` holds one entry per JoinIndex evaluated and
-    ``host_syncs`` the counts read to the host."""
+    ``host_syncs`` the host's blocking transfers: the counts read and the
+    host values uploaded while evaluating, and with ``fetch`` the result
+    transfer's reads."""
 
     def __init__(self, store: ColumnStore, device: torch.device,
                  fold_map: Optional[dict] = None,
@@ -279,6 +248,7 @@ class Compiler:
         self.gather_mates = gather_mates or {}
         self.dense_sibs = dense_sibs or {}
         self.lookups = lookups if lookups is not None else {}
+        self.host_syncs = 0
 
     def _monotone(self, v: V.Vexp) -> bool:
         """Positions/values known non-decreasing: the static rules of
@@ -299,7 +269,7 @@ class Compiler:
     def reset(self, tables) -> None:
         """Fresh evaluation state over ``tables`` (column name -> device
         tensor; anything with ``get`` and ``[]``): an empty memo and caches,
-        no joins logged, no host syncs."""
+        no joins logged."""
         self.memo: Dict[int, Val] = {}
         self.group_cache: Dict[tuple, dict] = {}
         self.fused_cache: Dict[int, dict] = {}
@@ -307,7 +277,6 @@ class Compiler:
         self.join_cache: Dict[tuple, dict] = {}
         self.dense_pre: Dict[tuple, tuple] = {}
         self.join_log: List[dict] = []
-        self.host_syncs = 0
         self.tables = tables
 
     def eval(self, v: V.Vexp) -> Val:
@@ -329,10 +298,69 @@ class Compiler:
         data = _mask_tail(data, val.valid, val.length)
         return Val(data=data, valid=val.valid, length=val.length)
 
-    def _read(self, t: torch.Tensor) -> int:
-        """A count read to the host (a sync); ``host_syncs`` counts them."""
+    def _read(self, t: torch.Tensor, site: str) -> int:
+        """A count read to the host at ``site`` (a sync); ``host_syncs``
+        counts them."""
         self.host_syncs += 1
         return int(t)
+
+    def _copy(self, t: torch.Tensor) -> np.ndarray:
+        """Rows copied to the host (a sync); ``host_syncs`` counts them."""
+        self.host_syncs += 1
+        return t.cpu().numpy()
+
+    def _upload(self, x, dtype: Optional[torch.dtype] = None
+                ) -> torch.Tensor:
+        """Host data (an int, a list, an array) copied to the device.  On
+        the GPU the copy leaves pageable memory, so it waits for the stream
+        to drain: a sync, which ``host_syncs`` counts."""
+        self.host_syncs += 1
+        return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+    def _i64(self, x) -> torch.Tensor:
+        """``x`` as an int64 tensor on the device: a count already there,
+        or a host value by ``_upload``."""
+        if isinstance(x, torch.Tensor):
+            return torch.as_tensor(x, dtype=torch.int64, device=self.device)
+        return self._upload(x, torch.int64)
+
+    def _vmin(self, a, b):
+        if isinstance(a, int) and isinstance(b, int):
+            return min(a, b)
+        return torch.minimum(self._i64(a), self._i64(b))
+
+    def _run_ends(self, starts: torch.Tensor, nruns, nvalid, n: int
+                  ) -> torch.Tensor:
+        """The last sorted row of each run, from the runs' first rows
+        ``starts`` (ascending, int64), the run count and the count of valid
+        sorted rows; 0 past ``nruns``."""
+        next_start = torch.cat([starts[1:], self._i64([n])])
+        kidx = torch.arange(starts.shape[0], device=starts.device)
+        ends = torch.where(kidx + 1 < nruns, next_start - 1, self._i64(0))
+        return torch.where(kidx + 1 == nruns, nvalid - 1, ends)
+
+    def _run_sums(self, cs: torch.Tensor, starts: torch.Tensor,
+                  ends: torch.Tensor, nruns) -> torch.Tensor:
+        """Each run's sum from the inclusive int64 prefix sum ``cs`` of the
+        sorted rows: ``cs[end] - cs[start - 1]``; 0 past ``nruns``."""
+        n = cs.shape[0]
+        zero = self._i64(0)
+        at_end = cs[torch.clamp(ends, 0, n - 1)]
+        before = torch.where(starts > 0,
+                             cs[torch.clamp(starts - 1, 0, n - 1)], zero)
+        kmask = torch.arange(starts.shape[0], device=cs.device) < nruns
+        return torch.where(kmask, at_end - before, zero)
+
+    def fetch(self, vals: List[Val]) -> List[np.ndarray]:
+        """Each value's valid rows on the host: its count read first when
+        it is on the device (``result_valid``), then its rows copied
+        (``result_copy``), each read counted in ``host_syncs``."""
+        cols = []
+        for val in vals:
+            n = (self._read(val.valid, "result_valid")
+                 if isinstance(val.valid, torch.Tensor) else int(val.valid))
+            cols.append(self._copy(val.data[:n]))
+        return cols
 
     # ------------------------------------------------------------------- ops
     def _eval(self, v: V.Vexp) -> Val:
@@ -376,7 +404,7 @@ class Compiler:
             # the survivor count sizes the selection buffer, so every
             # downstream gather runs at the real cardinality (one host
             # sync; the JAX engine resolved it in a counting pre-pass)
-            nz = self._read(mask.sum())
+            nz = self._read(mask.sum(), "select")
             L_out = min(max(nz, 1), L)
             sel = _sel_positions(mask, L_out)
             sel = _mask_tail(sel.to(dt), nz, L_out)
@@ -435,8 +463,8 @@ class Compiler:
         elif isinstance(src.valid, int):
             valid = 0
         else:
-            valid = torch.where(src.valid > 0, _i64(pos.valid, self.device),
-                                _i64(0, self.device))
+            valid = torch.where(src.valid > 0, self._i64(pos.valid),
+                                self._i64(0))
         data = _mask_tail(data, valid, pos.length)
         return Val(data=data, valid=valid, length=pos.length)
 
@@ -489,7 +517,7 @@ class Compiler:
         n = min(src.length, pos.length)
         pdt = pos.data.dtype if L <= INT32_MAX else torch.int64
         idx = torch.arange(n, device=self.device)
-        limit = _vmin(src.valid, pos.valid, self.device)
+        limit = self._vmin(src.valid, pos.valid)
         if vx.shpos.quant == V.UNIQUE and self._monotone(vx.shpos):
             p = torch.where(idx < limit, pos.data[:n].to(pdt),
                             torch.full((), L, dtype=pdt, device=self.device))
@@ -497,7 +525,7 @@ class Compiler:
         else:
             p = torch.where(idx < limit,
                             torch.clamp(pos.data[:n].to(torch.int64), max=L),
-                            _i64(L, self.device))
+                            self._i64(L))
             out = repeat_scatter(p, src.data[:n].to(dt), L)
         return Val(data=out, valid=L, length=L)
 
@@ -511,7 +539,7 @@ class Compiler:
         n = vals[0].length
         dev = self.device
         validmask = torch.arange(n, device=dev) < vals[0].valid
-        big = _i64(2**62, dev)
+        big = self._i64(2**62)
         perm = None  # the identity until the first sort
         for kv, desc in list(zip(vals, vx.descs))[::-1]:
             kd = kv.data.to(torch.int64)
@@ -573,7 +601,7 @@ class Compiler:
         tab = np.zeros(hi - lo + 1, np.int32 if x.max() <= INT32_MAX
                        else np.int64)
         tab[c - lo] = x
-        return lo, torch.from_numpy(tab).to(self.device)
+        return lo, self._upload(tab)
 
     def _lookup(self, tab: Optional[Tuple[int, torch.Tensor]],
                 dval: Val) -> torch.Tensor:
@@ -595,11 +623,11 @@ class Compiler:
         dev = self.device
         lv, rv = self.eval(vx.left), self.eval(vx.right)
         L = lv.length * rv.length
-        total = _i64(lv.valid, dev) * _i64(rv.valid, dev)
+        total = self._i64(lv.valid) * self._i64(rv.valid)
         i = torch.arange(L, dtype=torch.int64, device=dev)
-        mv = torch.clamp(_i64(rv.valid, dev), min=1)
+        mv = torch.clamp(self._i64(rv.valid), min=1)
         data = i // mv if vx.variant == V.COUTER else i % mv
-        data = torch.where(i < total, data, _i64(0, dev))
+        data = torch.where(i < total, data, self._i64(0))
         if isinstance(lv.valid, int) and isinstance(rv.valid, int):
             total = lv.valid * rv.valid
         return Val(data=data.to(torch_dtype_for(v.info)), valid=total,
@@ -643,7 +671,7 @@ class Compiler:
             art = dict(path="merge", rs_idx=rs_idx.to(kdt), lo=lo,
                        cnt=hi - lo)
         art["cum"] = scan.cumsum(art["cnt"])
-        art["total"] = art["cum"][-1] if n > 0 else _i64(0, dev)
+        art["total"] = art["cum"][-1] if n > 0 else self._i64(0)
         art.update(n=n, m=m, lvalid=lv.valid, syncs=0)
         self.join_cache[key] = art
         return art
@@ -730,7 +758,7 @@ class Compiler:
     def _join_total(self, art: dict) -> int:
         """The pair count, read to the host once per key pair."""
         if "total_host" not in art:
-            art["total_host"] = self._read(art["total"])
+            art["total_host"] = self._read(art["total"], "join_total")
             art["syncs"] += 1
         return art["total_host"]
 
@@ -787,7 +815,7 @@ class Compiler:
                 un = art.get("unmatched")
                 if un is None:
                     mask = (art["cnt"] == 0) & lmask
-                    n_un = self._read(mask.sum())
+                    n_un = self._read(mask.sum(), "unmatched")
                     art["syncs"] += 1
                     un = art["unmatched"] = (
                         _sel_positions(mask, max(n_un, 1))[:n_un], n_un)
@@ -823,7 +851,7 @@ class Compiler:
         a = lv.data[:L].to(cdt)
         b = rv.data[:L].to(cdt)
         op = vx.binop
-        valid = _vmin(lv.valid, rv.valid, self.device)
+        valid = self._vmin(lv.valid, rv.valid)
         if op == M.ADD:
             out = a + b
         elif op == M.SUB:
@@ -889,7 +917,7 @@ class Compiler:
             validmask = validmask & (m.data[:n] != 0)
         if domain <= segred.SMALL_DOMAIN:
             ids = torch.clamp(g.data.to(torch.int64), 0, domain - 1)
-            ids_ok = torch.where(validmask, ids, _i64(domain, self.device))
+            ids_ok = torch.where(validmask, ids, self._i64(domain))
             art = {"dense": True, "n": n, "domain": domain,
                    "ids_ok": ids_ok}
         else:
@@ -921,12 +949,12 @@ class Compiler:
         sorted_valid = sorted_ids < domain
         head = _changes(sorted_ids)
         run_id = scan.cumsum_flags(head) - 1
-        run_ok = torch.where(sorted_valid, run_id, _i64(L_out, dev))
+        run_ok = torch.where(sorted_valid, run_id, self._i64(L_out))
         ngroups = (head & sorted_valid).sum()
         nvalid = sorted_valid.sum()
         # run starts ascend (the compaction kernel); L_out <= n
         starts = _sel_positions(head, L_out).to(torch.int64)
-        ends = _run_ends(starts, ngroups, nvalid, n)
+        ends = self._run_ends(starts, ngroups, nvalid, n)
         return {"dense": False, "n": n, "perm": perm, "run_ok": run_ok,
                 "ngroups": ngroups, "nvalid": nvalid, "starts": starts,
                 "ends": ends}
@@ -976,7 +1004,7 @@ class Compiler:
         dv = self._force(self.eval(vx.fdata))
         n = min(gv.length, dv.length)
         validmask = (torch.arange(n, device=dev)
-                     < _vmin(gv.valid, dv.valid, dev))
+                     < self._vmin(gv.valid, dv.valid))
         if vx.fmask is not None:
             m = self._force(self.eval(vx.fmask))
             validmask = validmask & (m.data[:n] != 0)
@@ -1006,9 +1034,10 @@ class Compiler:
             head = _changes(sid) & svalid
             ngroups = head.sum()
             starts = _sel_positions(head, L_out).to(torch.int64)
-            out = _run_sums(scan.cumsum_flags(new_pair), starts,
-                            _run_ends(starts, ngroups, svalid.sum(), n),
-                            ngroups)
+            out = self._run_sums(scan.cumsum_flags(new_pair), starts,
+                                 self._run_ends(starts, ngroups,
+                                                svalid.sum(), n),
+                                 ngroups)
         out = _mask_tail(out.to(dt), ngroups, L_out)
         return Val(data=out, valid=ngroups, length=L_out)
 
@@ -1022,10 +1051,10 @@ class Compiler:
         kmask = torch.arange(L_out, device=dev) < ngroups
         sd = _mask_tail(gather_many([data], art["perm"], n)[0],
                         art["nvalid"], n)
-        zero = _i64(0, dev)
+        zero = self._i64(0)
         starts = torch.clamp(art["starts"], 0, n - 1)
         if vx.foldop == V.FSUM:
-            out = _run_sums(torch.cumsum(sd.to(torch.int64), 0),
+            out = self._run_sums(torch.cumsum(sd.to(torch.int64), 0),
                             art["starts"], art["ends"], ngroups)
         elif vx.foldop == V.FCHOOSE:
             out = torch.where(kmask, sd[starts].to(torch.int64), zero)
@@ -1234,31 +1263,72 @@ def _node_label(v: V.Vexp) -> str:
     return f"{_node_kind(v.vx)} #{v.skey}{name}"
 
 
-class TrafficCompiler(Compiler):
-    """A ``Compiler`` that charges each VIR node it evaluates its operand
-    and output buffer bytes, the rule the JAX package's
-    ``engine/hloprof.py`` applies to HLO instructions: after a call,
-    ``charges`` holds (node, bytes, output bytes) in evaluation order.
-    Loads are charged to the nodes that read them, as HLO parameters are.
-    Only ``CompiledQuery.cost_report`` uses it; a normal call evaluates
-    with ``Compiler`` and records nothing."""
+# span name of each VIR node, by structural key (a node's kind is fixed by
+# its structure); filled as traced calls evaluate nodes
+_SPAN_NAMES: Dict[int, str] = {}
+
+
+class TracedCompiler(Compiler):
+    """The instrumented ``Compiler``.  While torch.profiler records, each
+    VIR node it evaluates is a span ``m2v_node.<kind>``, each count read
+    to the host a span ``m2v_sync.<site>``, each upload a span
+    ``m2v_sync.upload``, and ``fetch`` a span ``m2v_result`` around its
+    reads (``tracing``): one ``m2v_sync.*`` span for each of the call's
+    ``host_syncs``.  ``order`` keeps the
+    evaluated nodes, from which ``charges`` computes their byte traffic.
+    ``CompiledQuery`` uses it for ``cost_report`` and for a call while the
+    profiler records; otherwise a call evaluates with ``Compiler`` and
+    records nothing."""
 
     def trace(self, vexps: List[V.Vexp], tables: Dict[Name, torch.Tensor]
               ) -> List[Val]:
-        self.charges: List[Tuple[V.Vexp, int, int]] = []
+        self.order: List[V.Vexp] = []
         return super().trace(vexps, tables)
 
     def eval(self, v: V.Vexp) -> Val:
         hit = self.memo.get(v.skey)
         if hit is not None:
             return hit
-        out = super().eval(v)
-        if not isinstance(v.vx, V.Load):
-            ob = _nbytes(out)
-            ib = sum(_nbytes(self.memo[c.skey]) for c in _children(v.vx)
-                     if c.skey in self.memo)
-            self.charges.append((v, ib + ob, ob))
+        name = _SPAN_NAMES.get(v.skey)
+        if name is None:
+            name = _SPAN_NAMES[v.skey] = "m2v_node." + _node_kind(v.vx)
+        with tracing.span(name):
+            out = super().eval(v)
+        self.order.append(v)
         return out
+
+    def charges(self) -> List[Tuple[V.Vexp, int, int]]:
+        """(node, bytes, output bytes) of each evaluated node in evaluation
+        order, the rule the JAX package's ``engine/hloprof.py`` applies to
+        HLO instructions: its output buffer, plus the buffers of its
+        operands already evaluated when it was.  Loads are charged to the
+        nodes that read them, as HLO parameters are."""
+        done, out = set(), []
+        for v in self.order:
+            if not isinstance(v.vx, V.Load):
+                ob = _nbytes(self.memo[v.skey])
+                ib = sum(_nbytes(self.memo[c.skey]) for c in _children(v.vx)
+                         if c.skey in done)
+                out.append((v, ib + ob, ob))
+            done.add(v.skey)
+        return out
+
+    def _read(self, t: torch.Tensor, site: str) -> int:
+        with tracing.span("m2v_sync." + site):
+            return super()._read(t, site)
+
+    def _copy(self, t: torch.Tensor) -> np.ndarray:
+        with tracing.span("m2v_sync.result_copy"):
+            return super()._copy(t)
+
+    def _upload(self, x, dtype: Optional[torch.dtype] = None
+                ) -> torch.Tensor:
+        with tracing.span("m2v_sync.upload"):
+            return super()._upload(x, dtype)
+
+    def fetch(self, vals: List[Val]) -> List[np.ndarray]:
+        with tracing.span("m2v_result"):
+            return super().fetch(vals)
 
 
 class CompiledQuery:
@@ -1287,15 +1357,21 @@ class CompiledQuery:
                            if len(ps) > 1}
         self.lookups: dict = {}
         self.join_log: List[dict] = []
+        # after a call, its blocking transfers (``Compiler.host_syncs``):
+        # the counts read and host values uploaded while evaluating, then
+        # each result column's count (where it is on the device) and rows;
+        # after ``run``, all but the result's
         self.host_syncs = 0
 
-    def device_args(self) -> Tuple[torch.Tensor, ...]:
-        """The loaded columns on the device (copied there on first use)."""
+    def device_args(self, upload=None) -> Tuple[torch.Tensor, ...]:
+        """The loaded columns on the device, copied there on first use: by
+        ``upload`` (a call's ``Compiler._upload``, which counts the copies)
+        when given."""
         if self._args is None:
+            up = upload or (lambda a: torch.as_tensor(a, device=self.device))
             self._args = tuple(
-                torch.from_numpy(np.require(self.store.columns[n],
-                                            requirements=["C", "W"]))
-                .to(self.device) for n in self.loads)
+                up(np.require(self.store.columns[n], requirements=["C", "W"]))
+                for n in self.loads)
         return self._args
 
     def run(self) -> List[Val]:
@@ -1305,7 +1381,8 @@ class CompiledQuery:
     def _run(self, cls) -> Tuple[List[Val], Compiler]:
         c = cls(self.store, self.device, self.fold_map, self.families,
                 self.gather_mates, self.dense_sibs, self.lookups)
-        out = c.trace(self.vexps, dict(zip(self.loads, self.device_args())))
+        args = self.device_args(c._upload)
+        out = c.trace(self.vexps, dict(zip(self.loads, args)))
         self.join_log, self.host_syncs = c.join_log, c.host_syncs
         return out, c
 
@@ -1317,7 +1394,7 @@ class CompiledQuery:
         ``scan_bytes`` is one read of every loaded column (the bytes of
         ``device_args()``), the least traffic a call can make.
         ``bytes_accessed`` comes from one extra evaluation by
-        ``TrafficCompiler``, which charges each evaluated VIR node its
+        ``TracedCompiler``, which charges each evaluated VIR node its
         operand and output buffer bytes; ``amplification`` is their ratio.
         It is an estimate, as the JAX engine's is: a kernel may read an
         operand more than once, or not all of it.  There is no program to
@@ -1328,7 +1405,7 @@ class CompiledQuery:
         VIR node kind, largest first) and ``top_nodes`` (label, bytes and
         output bytes of the costliest nodes)."""
         scan = sum(a.numel() * a.element_size() for a in self.device_args())
-        charges = self._run(TrafficCompiler)[1].charges
+        charges = self._run(TracedCompiler)[1].charges()
         total = sum(b for _, b, _ in charges)
         out = {"scan_bytes": scan, "bytes_accessed": total, "flops": None,
                "amplification": total / scan if total and scan else None}
@@ -1349,13 +1426,20 @@ class CompiledQuery:
         return out
 
     def __call__(self) -> QueryResult:
-        cols, names, dts = [], [], []
-        for v, val in zip(self.vexps, self.run()):
-            n = int(val.valid)
-            cols.append(val.data[:n].cpu().numpy())
-            names.append(v.name)
-            dts.append(v.info.dtype)
-        return QueryResult(names=names, dtypes=dts, columns=cols)
+        """One call, its rows on the host.  While torch.profiler records,
+        the call is a span ``m2v_query`` evaluated by ``TracedCompiler``."""
+        if not tracing.recording():
+            return self._fetch(Compiler)
+        with tracing.span("m2v_query"):
+            return self._fetch(TracedCompiler)
+
+    def _fetch(self, cls) -> QueryResult:
+        vals, c = self._run(cls)
+        cols = c.fetch(vals)
+        self.host_syncs = c.host_syncs
+        return QueryResult(names=[v.name for v in self.vexps],
+                           dtypes=[v.info.dtype for v in self.vexps],
+                           columns=cols)
 
 
 def _all_loads(vexps: List[V.Vexp]):

@@ -855,7 +855,7 @@ class _ShardCompiler(Compiler):
             cap_hb=hv["cap_hb"] if hv else 0,
             cap_hp=hv["cap_hp"] if hv else 0, mesh=self.mesh)
         sel = _positions(r["pair_ok"], caps["cap_exp"]).to(torch.int64)
-        npair = self._read(r["pair_ok"].sum())
+        npair = self._read(r["pair_ok"].sum(), "pair_total")
         lval = self._force(self.eval(pj["lkeys"]))
         art = dict(lidx=r["lidx"][sel], pays=[p[sel] for p in r["payloads"]],
                    cnt=r["cnt"], npair=npair, nl=lval.length,
@@ -867,7 +867,7 @@ class _ShardCompiler(Compiler):
             lmask = torch.arange(art["nl"], device=dev) < lval.valid
             un = (r["cnt"] == 0) & lmask
             art["un_sel"] = _positions(un, caps["cap_un"])
-            art["n_un"] = self._read(un.sum())
+            art["n_un"] = self._read(un.sum(), "unmatched")
         self.join_cache[("part",) + key] = art
         return art
 

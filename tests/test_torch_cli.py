@@ -365,7 +365,7 @@ def test_normal_call_records_nothing(q5, monkeypatch):
     def refuse(self, v):
         raise AssertionError("a normal call charged a node")
 
-    monkeypatch.setattr(tlower.TrafficCompiler, "eval", refuse)
+    monkeypatch.setattr(tlower.TracedCompiler, "eval", refuse)
     after = q5()
     assert [n for n in before.names] == [n for n in after.names]
     for a, b in zip(before.columns, after.columns, strict=True):
