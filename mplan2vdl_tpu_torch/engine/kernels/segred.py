@@ -50,6 +50,23 @@ def group_counts(ids_ok, domain: int):
     return torch.stack([(ids_ok == g).sum() for g in range(domain)])
 
 
+def one_group_reduce(data, ok, key: int, domain: int, op: str):
+    """``masked_group_reduce`` where every row that ``ok`` keeps (every row
+    when ``ok`` is None) has the id ``key``: one reduction, and the
+    identity at every other id."""
+    x = data if ok is None else torch.where(ok, data, _ident(op, data.dtype))
+    out = data.new_full((domain,), _ident(op, data.dtype))
+    out[key] = _reduce(op, x)
+    return out
+
+
+def one_group_counts(ok, key: int, domain: int, n: int, device):
+    """``group_counts`` of the same rows, ``n`` of them."""
+    out = torch.zeros(domain, dtype=torch.int64, device=device)
+    out[key] = n if ok is None else ok.sum()
+    return out
+
+
 def masked_group_reduce_with_counts(data, ids_ok, domain: int, op: str):
     """Per-group (reduction, row count)."""
     return (masked_group_reduce(data, ids_ok, domain, op),

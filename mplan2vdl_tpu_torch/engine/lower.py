@@ -96,12 +96,54 @@ def torch_dtype_for(info: ColInfo) -> torch.dtype:
 @dataclass
 class Val:
     """A runtime vector: buffer + valid length (an int, or a 0-d int64
-    tensor on the device where the count is still there)."""
+    tensor on the device where the count is still there).  A range the
+    host knows (``RangeC``, ``RangeV``) stays lazy until a consumer needs
+    its buffer (``Compiler._force``); one of step 0 is a constant, which
+    most consumers take as a scalar instead."""
 
-    data: Optional[torch.Tensor]  # None for an unmaterialized RangeC
+    data: Optional[torch.Tensor]  # None for a lazy range
     valid: Union[int, torch.Tensor]
     length: int  # buffer length
     lazy_range: Optional[Tuple[int, int]] = None  # (rmin, rstep) when data is None
+    dtype: Optional[torch.dtype] = None  # a lazy range's buffer dtype
+
+
+def _const(val: Val) -> Optional[int]:
+    """The value of a lazy constant (a lazy range of step 0), else None."""
+    if val.data is None and val.lazy_range[1] == 0:
+        return val.lazy_range[0]
+    return None
+
+
+def _lazy_dtype(val: Val) -> torch.dtype:
+    """A lazy range's buffer dtype: its own, or (a ``RangeC``'s) int32
+    where its values fit."""
+    rmin, rstep = val.lazy_range
+    return val.dtype or (torch.int64 if abs(rmin) + abs(rstep) * val.length
+                         > INT32_MAX else torch.int32)
+
+
+def _valid_mask(n: int, valid, device) -> Optional[torch.Tensor]:
+    """``arange(n) < valid``, or None where every row is valid (the rule
+    ``_mask_tail`` applies)."""
+    if isinstance(valid, int) and valid == n:
+        return None
+    return torch.arange(n, device=device) < valid
+
+
+def _keep_valid(data: torch.Tensor, valid, other) -> torch.Tensor:
+    """``data`` below ``valid``, ``other`` (a scalar) past it: ``data``
+    itself where every row is valid."""
+    mask = _valid_mask(data.shape[0], valid, data.device)
+    return data if mask is None else torch.where(mask, data, other)
+
+
+def _and(a: Optional[torch.Tensor], b: Optional[torch.Tensor]
+         ) -> Optional[torch.Tensor]:
+    """Two row masks combined, None meaning every row."""
+    if a is None:
+        return b
+    return a if b is None else a & b
 
 
 def _sel_positions(mask: torch.Tensor, n_out: Optional[int] = None
@@ -216,6 +258,65 @@ def _sort_pairs(ids: torch.Tensor, vals: torch.Tensor, domain: int,
     return sid, _changes(sid) | _changes(sv[o2])
 
 
+def _binop(op: str, a, b):
+    """The engine's ``op`` over ``a`` and ``b``: tensors in the compute
+    dtype, or one of them a Python int (a constant, which torch hands the
+    kernel as an argument).  A division or modulo by zero divides by one;
+    a negative shift amount shifts left (Vlite.hs:205-208)."""
+    if op == M.ADD:
+        return a + b
+    if op == M.SUB:
+        return a - b
+    if op == M.MUL:
+        return a * b
+    if op in (M.DIV, M.MOD):
+        d = (b or 1) if isinstance(b, int) else torch.where(
+            b == 0, torch.ones_like(b), b)
+        if isinstance(a, int):
+            a = torch.full((), a, dtype=b.dtype, device=b.device)
+        if op == M.DIV:
+            return torch.div(a, d, rounding_mode="trunc")
+        return torch.fmod(a, d)
+    if op in (M.MIN, M.MAX):
+        t, k = (b, a) if isinstance(a, int) else (a, b)
+        if isinstance(k, int):
+            return (torch.clamp(t, max=k) if op == M.MIN
+                    else torch.clamp(t, min=k))
+        return torch.minimum(t, k) if op == M.MIN else torch.maximum(t, k)
+    if op == M.GT:
+        return a > b
+    if op == M.LT:
+        return a < b
+    if op == M.GEQ:
+        return a >= b
+    if op == M.LEQ:
+        return a <= b
+    if op == M.EQ:
+        return a == b
+    if op == M.NEQ:
+        return a != b
+    if op in (M.LOGAND, M.LOGOR):
+        t, k = (b, a) if isinstance(a, int) else (a, b)
+        if not isinstance(k, int):
+            return ((t != 0) & (k != 0) if op == M.LOGAND
+                    else (t != 0) | (k != 0))
+        if (k != 0) == (op == M.LOGOR):  # the constant decides
+            return torch.full_like(t, op == M.LOGOR, dtype=torch.bool)
+        return t != 0
+    if op == M.BITAND:
+        return a & b
+    if op == M.BITOR:
+        return a | b
+    if op == M.BITSHIFT:
+        if isinstance(b, int):
+            return a << min(-b, 63) if b < 0 else a >> min(b, 63)
+        if isinstance(a, int):
+            a = torch.full((), a, dtype=b.dtype, device=b.device)
+        return torch.where(b < 0, a << torch.clamp(-b, 0, 63),
+                           a >> torch.clamp(b, 0, 63))
+    raise ValueError(f"unknown binop {op}")
+
+
 def _outside_slice(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to mplan2vdl_tpu_torch yet")
@@ -233,7 +334,8 @@ class Compiler:
     After a call, ``join_log`` holds one entry per JoinIndex evaluated and
     ``host_syncs`` the host's blocking transfers: the counts read and the
     host values uploaded while evaluating, and with ``fetch`` the result
-    transfer's reads."""
+    transfer's reads.  ``consts_scalar`` counts the constants a consumer
+    took as a scalar, ``consts_materialized`` those ``_force`` wrote out."""
 
     def __init__(self, store: ColumnStore, device: torch.device,
                  fold_map: Optional[dict] = None,
@@ -249,6 +351,8 @@ class Compiler:
         self.dense_sibs = dense_sibs or {}
         self.lookups = lookups if lookups is not None else {}
         self.host_syncs = 0
+        self.consts_scalar = 0
+        self.consts_materialized = 0
 
     def _monotone(self, v: V.Vexp) -> bool:
         """Positions/values known non-decreasing: the static rules of
@@ -288,15 +392,35 @@ class Compiler:
         return out
 
     def _force(self, val: Val) -> Val:
+        """``val`` with its buffer: a lazy range written out in
+        ``_lazy_dtype``, zeros past ``valid``."""
         if val.data is not None:
             return val
+        if _const(val) is not None:
+            return self._materialize(val)
         rmin, rstep = val.lazy_range
-        dt = torch.int64 if (abs(rmin) + abs(rstep) * val.length
-                             > INT32_MAX) else torch.int32
-        data = rmin + rstep * torch.arange(val.length, dtype=dt,
-                                           device=self.device)
-        data = _mask_tail(data, val.valid, val.length)
-        return Val(data=data, valid=val.valid, length=val.length)
+        n = val.length
+        data = torch.arange(rmin, rmin + rstep * n, rstep,
+                            dtype=_lazy_dtype(val), device=self.device)
+        return Val(data=_mask_tail(data, val.valid, n), valid=val.valid,
+                   length=n)
+
+    def _materialize(self, val: Val) -> Val:
+        """A constant written out for a consumer that needs its buffer:
+        one fill, then the tail past ``valid`` zeroed."""
+        self.consts_materialized += 1
+        data = torch.full((val.length,), val.lazy_range[0],
+                          dtype=_lazy_dtype(val), device=self.device)
+        return Val(data=_mask_tail(data, val.valid, val.length),
+                   valid=val.valid, length=val.length)
+
+    def _take(self, val: Val) -> Optional[int]:
+        """A constant's value, which its consumer takes as a scalar
+        (``consts_scalar`` counts it); None for any other value."""
+        k = _const(val)
+        if k is not None:
+            self.consts_scalar += 1
+        return k
 
     def _read(self, t: torch.Tensor, site: str) -> int:
         """A count read to the host at ``site`` (a sync); ``host_syncs``
@@ -334,9 +458,9 @@ class Compiler:
         """The last sorted row of each run, from the runs' first rows
         ``starts`` (ascending, int64), the run count and the count of valid
         sorted rows; 0 past ``nruns``."""
-        next_start = torch.cat([starts[1:], self._i64([n])])
+        next_start = torch.cat([starts[1:], starts.new_full((1,), n)])
         kidx = torch.arange(starts.shape[0], device=starts.device)
-        ends = torch.where(kidx + 1 < nruns, next_start - 1, self._i64(0))
+        ends = torch.where(kidx + 1 < nruns, next_start - 1, 0)
         return torch.where(kidx + 1 == nruns, nvalid - 1, ends)
 
     def _run_sums(self, cs: torch.Tensor, starts: torch.Tensor,
@@ -344,12 +468,11 @@ class Compiler:
         """Each run's sum from the inclusive int64 prefix sum ``cs`` of the
         sorted rows: ``cs[end] - cs[start - 1]``; 0 past ``nruns``."""
         n = cs.shape[0]
-        zero = self._i64(0)
         at_end = cs[torch.clamp(ends, 0, n - 1)]
         before = torch.where(starts > 0,
-                             cs[torch.clamp(starts - 1, 0, n - 1)], zero)
+                             cs[torch.clamp(starts - 1, 0, n - 1)], 0)
         kmask = torch.arange(starts.shape[0], device=cs.device) < nruns
-        return torch.where(kmask, at_end - before, zero)
+        return torch.where(kmask, at_end - before, 0)
 
     def fetch(self, vals: List[Val]) -> List[np.ndarray]:
         """Each value's valid rows on the host: its count read first when
@@ -383,10 +506,8 @@ class Compiler:
 
         if isinstance(vx, V.RangeV):
             ref = self.eval(vx.rref)
-            data = (vx.rmin + vx.rstep * torch.arange(
-                ref.length, dtype=torch.int64, device=self.device)).to(dt)
-            data = _mask_tail(data, ref.valid, ref.length)
-            return Val(data=data, valid=ref.valid, length=ref.length)
+            return Val(data=None, valid=ref.valid, length=ref.length,
+                       lazy_range=(vx.rmin, vx.rstep), dtype=dt)
 
         if isinstance(vx, V.Binop):
             return self._eval_binop(v, vx)
@@ -516,16 +637,13 @@ class Compiler:
             L = vx.shpos.info.bounds[1] + 1
         n = min(src.length, pos.length)
         pdt = pos.data.dtype if L <= INT32_MAX else torch.int64
-        idx = torch.arange(n, device=self.device)
         limit = self._vmin(src.valid, pos.valid)
         if vx.shpos.quant == V.UNIQUE and self._monotone(vx.shpos):
-            p = torch.where(idx < limit, pos.data[:n].to(pdt),
-                            torch.full((), L, dtype=pdt, device=self.device))
+            p = _keep_valid(pos.data[:n].to(pdt), limit, L)
             out = monotone_scatter(p, src.data[:n].to(dt), L)
         else:
-            p = torch.where(idx < limit,
-                            torch.clamp(pos.data[:n].to(torch.int64), max=L),
-                            self._i64(L))
+            p = _keep_valid(torch.clamp(pos.data[:n].to(torch.int64), max=L),
+                            limit, L)
             out = repeat_scatter(p, src.data[:n].to(dt), L)
         return Val(data=out, valid=L, length=L)
 
@@ -645,7 +763,6 @@ class Compiler:
         hit = self.join_cache.get(key)
         if hit is not None:
             return hit
-        dev = self.device
         lv = self._force(self.eval(lkeys))
         rv = self._force(self.eval(rkeys))
         n, m = lv.length, rv.length
@@ -655,14 +772,10 @@ class Compiler:
         khi = max(lkeys.info.bounds[1], rkeys.info.bounds[1])
         use32 = (klo > -(2**31) and khi < 2**31 - 3 and max(n, m) < 2**31)
         kdt = torch.int32 if use32 else torch.int64
-        sent_l = torch.full((), khi + 1 if use32 else 2**62 - 1, dtype=kdt,
-                            device=dev)
-        sent_r = torch.full((), khi + 2 if use32 else 2**62, dtype=kdt,
-                            device=dev)
-        r_ok = torch.where(torch.arange(m, device=dev) < rv.valid,
-                           rv.data.to(kdt), sent_r)
-        l_ok = torch.where(torch.arange(n, device=dev) < lv.valid,
-                           lv.data.to(kdt), sent_l)
+        r_ok = _keep_valid(rv.data.to(kdt), rv.valid,
+                           khi + 2 if use32 else 2**62)
+        l_ok = _keep_valid(lv.data.to(kdt), lv.valid,
+                           khi + 1 if use32 else 2**62 - 1)
         art = self._dense_join(key, lv, rv, l_ok, r_ok, klo, khi, use32,
                                lkeys)
         if art is None:
@@ -734,10 +847,8 @@ class Compiler:
                 m2 = rv2.length
                 if not 1 <= m2 <= DENSE_RIGHT_MAX:
                     continue
-                r_ok2 = torch.where(
-                    torch.arange(m2, device=dev) < rv2.valid,
-                    rv2.data.to(torch.int32),
-                    torch.full((), khi + 2, dtype=torch.int32, device=dev))
+                r_ok2 = _keep_valid(rv2.data.to(torch.int32), rv2.valid,
+                                    khi + 2)
                 sibs.append((k2,) + _dense_tab(r_ok2, m2, klo, D))
             outs = gather_many([packed] + [t[2] for t in sibs], lk,
                                lv.valid, small=small)
@@ -748,8 +859,8 @@ class Compiler:
         # arithmetic shift, then the low 16 bits
         lo = pk & 0xFFFF
         cg = (pk >> 16) & 0xFFFF
-        in_dom = ((l_ok >= klo) & (l_ok <= khi)
-                  & (torch.arange(n, device=dev) < lv.valid))
+        in_dom = _and((l_ok >= klo) & (l_ok <= khi),
+                      _valid_mask(n, lv.valid, dev))
         cnt = torch.where(in_dom, cg, torch.zeros((), dtype=cg.dtype,
                                                   device=dev))
         return dict(path="dense", rs_idx=rs_idx, lo=lo,
@@ -797,10 +908,10 @@ class Compiler:
         n, side = art["n"], vx.jside
         syncs = art["syncs"]
         if side not in (V.JLEFT, V.JRIGHT):
-            lmask = torch.arange(n, device=dev) < art["lvalid"]
+            lmask = _valid_mask(n, art["lvalid"], dev)
         if side in (V.JSEMI, V.JANTI):
             has = art["cnt"] > 0
-            keep = (has if side == V.JSEMI else ~has) & lmask
+            keep = _and(has if side == V.JSEMI else ~has, lmask)
             sel = _sel_positions(keep, n)
             nz = keep.sum()
             out = Val(data=_mask_tail(sel.to(dt), nz, n), valid=nz, length=n)
@@ -814,7 +925,7 @@ class Compiler:
             else:
                 un = art.get("unmatched")
                 if un is None:
-                    mask = (art["cnt"] == 0) & lmask
+                    mask = _and(art["cnt"] == 0, lmask)
                     n_un = self._read(mask.sum(), "unmatched")
                     art["syncs"] += 1
                     un = art["unmatched"] = (
@@ -841,91 +952,71 @@ class Compiler:
 
     # ---------------------------------------------------------------- binops
     def _eval_binop(self, v: V.Vexp, vx: V.Binop) -> Val:
-        lv = self._force(self.eval(vx.left))
-        rv = self._force(self.eval(vx.right))
+        """A constant operand stays a scalar and only the column operand is
+        cast; a Binop of two constants is a constant, computed on the host
+        by the same torch ops on 0-d CPU tensors."""
+        lv, rv = self.eval(vx.left), self.eval(vx.right)
+        ka, kb = self._take(lv), self._take(rv)
+        if ka is None:
+            lv = self._force(lv)
+        if kb is None:
+            rv = self._force(rv)
         L = min(lv.length, rv.length)
         dt = torch_dtype_for(v.info)
         # compute in a width that holds operands and result
-        cdt = torch.promote_types(
-            torch.promote_types(lv.data.dtype, rv.data.dtype), dt)
-        a = lv.data[:L].to(cdt)
-        b = rv.data[:L].to(cdt)
-        op = vx.binop
+        cdt = torch.promote_types(torch.promote_types(
+            torch_dtype_for(vx.left.info) if ka is not None
+            else lv.data.dtype,
+            torch_dtype_for(vx.right.info) if kb is not None
+            else rv.data.dtype), dt)
         valid = self._vmin(lv.valid, rv.valid)
-        if op == M.ADD:
-            out = a + b
-        elif op == M.SUB:
-            out = a - b
-        elif op == M.MUL:
-            out = a * b
-        elif op == M.DIV:
-            out = torch.div(a, torch.where(b == 0, torch.ones_like(b), b),
-                            rounding_mode="trunc")
-        elif op == M.MOD:
-            out = torch.fmod(a, torch.where(b == 0, torch.ones_like(b), b))
-        elif op == M.MIN:
-            out = torch.minimum(a, b)
-        elif op == M.MAX:
-            out = torch.maximum(a, b)
-        elif op == M.GT:
-            out = a > b
-        elif op == M.LT:
-            out = a < b
-        elif op == M.GEQ:
-            out = a >= b
-        elif op == M.LEQ:
-            out = a <= b
-        elif op == M.EQ:
-            out = a == b
-        elif op == M.NEQ:
-            out = a != b
-        elif op == M.LOGAND:
-            out = (a != 0) & (b != 0)
-        elif op == M.LOGOR:
-            out = (a != 0) | (b != 0)
-        elif op == M.BITAND:
-            out = a & b
-        elif op == M.BITOR:
-            out = a | b
-        elif op == M.BITSHIFT:
-            # sign of rhs encodes direction: negative shifts left
-            # (Vlite.hs:205-208)
-            out = torch.where(b < 0, a << torch.clamp(-b, 0, 63),
-                              a >> torch.clamp(b, 0, 63))
-        else:
-            raise ValueError(f"unknown binop {op}")
-        out = _mask_tail(out.to(dt), valid, L)
+        if ka is not None and kb is not None:
+            k = _binop(vx.binop, torch.tensor(ka, dtype=cdt),
+                       torch.tensor(kb, dtype=cdt))
+            return Val(data=None, valid=valid, length=L,
+                       lazy_range=(int(k.to(dt)), 0), dtype=dt)
+        a = ka if ka is not None else lv.data[:L].to(cdt)
+        b = kb if kb is not None else rv.data[:L].to(cdt)
+        out = _mask_tail(_binop(vx.binop, a, b).to(dt), valid, L)
         return Val(data=out, valid=valid, length=L)
 
     # ----------------------------------------------------------------- folds
     def _group_artifacts(self, fgroups: V.Vexp, L_out: int,
                          fmask: Optional[V.Vexp] = None) -> dict:
+        """What the folds over one group key share.  Over a domain of at
+        most SMALL_DOMAIN ids (dense): each row's id, ``domain`` for a
+        row the mask drops (``ids_ok``); for a constant key, no ids but
+        the key ``key`` and the row mask ``ok`` (None: every row).  Over
+        a larger domain, the sort-based group-by's artifacts."""
         key = (fgroups.skey, fmask.skey if fmask is not None else None, L_out)
         hit = self.group_cache.get(key)
         if hit is not None:
             return hit
-        g = self._force(self.eval(fgroups))
+        g = self.eval(fgroups)
         gmin, gmax = fgroups.info.bounds
         if gmin < 0:
             raise ValueError("group ids must be non-negative")
         domain = gmax + 1
         n = g.length
-        idx = torch.arange(n, device=self.device)
-        validmask = idx < g.valid
+        ok = _valid_mask(n, g.valid, self.device)
         if fmask is not None:
             m = self._force(self.eval(fmask))
-            validmask = validmask & (m.data[:n] != 0)
-        if domain <= segred.SMALL_DOMAIN:
-            ids = torch.clamp(g.data.to(torch.int64), 0, domain - 1)
-            ids_ok = torch.where(validmask, ids, self._i64(domain))
-            art = {"dense": True, "n": n, "domain": domain,
-                   "ids_ok": ids_ok}
+            ok = _and(ok, m.data[:n] != 0)
+        if domain > segred.SMALL_DOMAIN:
+            art = self._sparse_artifacts(self._force(g), ok, domain, L_out)
+        elif _const(g) is not None:
+            # every row the mask keeps is in one group
+            art = {"dense": True, "n": n, "domain": domain, "ids_ok": None,
+                   "key": min(max(self._take(g), 0), domain - 1), "ok": ok}
         else:
-            art = self._sparse_artifacts(g, validmask, domain, L_out)
+            ids = torch.clamp(self._force(g).data, 0, domain - 1)
+            art = {"dense": True, "n": n, "domain": domain,
+                   "ids_ok": ids if ok is None
+                   else torch.where(ok, ids, domain)}
         self.group_cache[key] = art
         return art
 
-    def _sparse_artifacts(self, g: Val, validmask: torch.Tensor,
+    def _sparse_artifacts(self, g: Val, validmask: Optional[torch.Tensor],
                           domain: int, L_out: int) -> dict:
         """The sort-based group-by: a stable sort of the masked ids (the
         masked-out rows carry the sentinel ``domain`` and sort last), then
@@ -936,20 +1027,20 @@ class Compiler:
         (``fold_payload_map``, ``MPLAN2VDL_COSORT_CAP``) bound XLA's compile
         time and have no counterpart: every payload gathers through
         ``perm`` with the gather kernel, which is right for any order."""
-        dev = self.device
         n = g.length
         # int32 sort keys when the id domain allows (sentinel included)
         kdt = torch.int32 if (domain < 2**31 - 1 and n < 2**31) \
             else torch.int64
-        ids_ok = torch.where(validmask, g.data[:n].to(kdt),
-                             torch.full((), domain, dtype=kdt, device=dev))
+        ids_ok = g.data[:n].to(kdt)
+        if validmask is not None:
+            ids_ok = torch.where(validmask, ids_ok, domain)
         sorted_ids, perm = torch.sort(ids_ok, stable=True)
         if n < 2**31:
             perm = perm.to(torch.int32)
         sorted_valid = sorted_ids < domain
         head = _changes(sorted_ids)
         run_id = scan.cumsum_flags(head) - 1
-        run_ok = torch.where(sorted_valid, run_id, self._i64(L_out))
+        run_ok = torch.where(sorted_valid, run_id, L_out)
         ngroups = (head & sorted_valid).sum()
         nvalid = sorted_valid.sum()
         # run starts ascend (the compaction kernel); L_out <= n
@@ -966,7 +1057,7 @@ class Compiler:
         dt = torch_dtype_for(v.info)
         g = self.eval(vx.fgroups)
         domain = vx.fgroups.info.bounds[1] + 1
-        dval = self._force(self.eval(vx.fdata))
+        dval = self.eval(vx.fdata)
         L_out = min(domain, g.length, dval.length)
         if vx.foldop == V.FDISTINCT:
             return self._eval_fold_distinct(vx, dt, domain, L_out)
@@ -975,13 +1066,28 @@ class Compiler:
         if dval.length < n:
             raise ValueError(f"fold payload of {dval.length} rows under "
                              f"{n} group ids")
-        data = dval.data[:n].to(dt)
+        # a constant payload c sums to c times the count, and is its own
+        # min, max and choice wherever its group is occupied
+        c = self._take(dval)
+        data = None if c is not None else self._force(dval).data[:n].to(dt)
         if not art["dense"]:
-            return self._eval_sparse_fold(vx, art, data, dt, L_out)
+            return self._eval_sparse_fold(vx, art, data, c, dt, L_out)
         opname = {V.FSUM: "sum", V.FMAX: "max", V.FMIN: "min",
                   V.FCHOOSE: "max"}[vx.foldop]
-        agg, counts = segred.masked_group_reduce_with_counts(
-            data, art["ids_ok"], art["domain"], opname)
+        ids_ok, domain = art["ids_ok"], art["domain"]
+        if ids_ok is not None:
+            counts = segred.group_counts(ids_ok, domain)
+        else:
+            counts = segred.one_group_counts(art["ok"], art["key"], domain,
+                                             n, self.device)
+        if c is not None:
+            agg = counts * c if vx.foldop == V.FSUM else torch.full_like(
+                counts, c)
+        elif ids_ok is not None:
+            agg = segred.masked_group_reduce(data, ids_ok, domain, opname)
+        else:
+            agg = segred.one_group_reduce(data, art["ok"], art["key"],
+                                          domain, opname)
         occ = counts > 0
         ngroups = occ.sum()
         sel = _sel_positions(occ, L_out)
@@ -1003,21 +1109,20 @@ class Compiler:
         gv = self._force(self.eval(vx.fgroups))
         dv = self._force(self.eval(vx.fdata))
         n = min(gv.length, dv.length)
-        validmask = (torch.arange(n, device=dev)
-                     < self._vmin(gv.valid, dv.valid))
+        validmask = _valid_mask(n, self._vmin(gv.valid, dv.valid), dev)
         if vx.fmask is not None:
             m = self._force(self.eval(vx.fmask))
-            validmask = validmask & (m.data[:n] != 0)
+            validmask = _and(validmask, m.data[:n] != 0)
         # int32 keys when the bounds allow
         dlo, dhi = vx.fdata.info.bounds
         use32 = (domain < 2**31 - 1 and dlo > -(2**31) + 1
                  and dhi < 2**31 - 1)
         kdt = torch.int32 if use32 else torch.int64
-        ids = torch.clamp(gv.data[:n].to(kdt), 0, domain - 1)
-        ids_ok = torch.where(validmask, ids,
-                             torch.full((), domain, dtype=kdt, device=dev))
-        vals = torch.where(validmask, dv.data[:n].to(kdt),
-                           torch.zeros((), dtype=kdt, device=dev))
+        ids_ok = torch.clamp(gv.data[:n].to(kdt), 0, domain - 1)
+        vals = dv.data[:n].to(kdt)
+        if validmask is not None:
+            ids_ok = torch.where(validmask, ids_ok, domain)
+            vals = torch.where(validmask, vals, 0)
         sid, fresh = _sort_pairs(ids_ok, vals, domain, min(dlo, 0),
                                  max(dhi, 0))
         svalid = sid < domain
@@ -1041,23 +1146,31 @@ class Compiler:
         out = _mask_tail(out.to(dt), ngroups, L_out)
         return Val(data=out, valid=ngroups, length=L_out)
 
-    def _eval_sparse_fold(self, vx: V.Fold, art: dict, data: torch.Tensor,
+    def _eval_sparse_fold(self, vx: V.Fold, art: dict,
+                          data: Optional[torch.Tensor], c: Optional[int],
                           dt, L_out: int) -> Val:
         """One fold over the sorted runs: a sum is the difference of an
         int64 prefix sum at run ends, choose reads run starts, and min/max
-        reduce each run with ``scatter_reduce`` over the run ids."""
+        reduce each run with ``scatter_reduce`` over the run ids.  A
+        constant payload ``c`` (``data`` None) takes no pass over the rows:
+        ``c`` times each run's length, or ``c``."""
         dev = self.device
         n, ngroups = art["n"], art["ngroups"]
         kmask = torch.arange(L_out, device=dev) < ngroups
+        if c is not None:
+            out = (art["ends"] - art["starts"] + 1) * c \
+                if vx.foldop == V.FSUM else c
+            out = torch.where(kmask, out, 0)
+            return Val(data=_mask_tail(out.to(dt), ngroups, L_out),
+                       valid=ngroups, length=L_out)
         sd = _mask_tail(gather_many([data], art["perm"], n)[0],
                         art["nvalid"], n)
-        zero = self._i64(0)
         starts = torch.clamp(art["starts"], 0, n - 1)
         if vx.foldop == V.FSUM:
             out = self._run_sums(torch.cumsum(sd.to(torch.int64), 0),
                             art["starts"], art["ends"], ngroups)
         elif vx.foldop == V.FCHOOSE:
-            out = torch.where(kmask, sd[starts].to(torch.int64), zero)
+            out = torch.where(kmask, sd[starts].to(torch.int64), 0)
         else:  # FMIN / FMAX
             info = torch.iinfo(torch.int64)
             ident, how = ((info.max, "amin") if vx.foldop == V.FMIN
@@ -1066,7 +1179,7 @@ class Compiler:
                              device=dev)
             red.scatter_reduce_(0, torch.clamp(art["run_ok"], 0, L_out),
                                 sd.to(torch.int64), how)
-            out = torch.where(kmask, red[:L_out], zero)
+            out = torch.where(kmask, red[:L_out], 0)
         out = _mask_tail(out.to(dt), ngroups, L_out)
         return Val(data=out, valid=ngroups, length=L_out)
 
@@ -1089,13 +1202,13 @@ class Compiler:
         if hit is None:
             g = self._force(self.eval(fam.fgroups))
             n = g.length
-            valid = torch.arange(n, device=self.device) < g.valid
+            valid = _valid_mask(n, g.valid, self.device)
             if fam.fmask is not None:
                 m = self._force(self.eval(fam.fmask))
-                valid = valid & (m.data[:n] != 0)
-            gid = torch.where(valid, g.data[:n].to(torch.int32),
-                              torch.full((), -1, dtype=torch.int32,
-                                         device=self.device))
+                valid = _and(valid, m.data[:n] != 0)
+            gid = g.data[:n].to(torch.int32)
+            if valid is not None:
+                gid = torch.where(valid, gid, -1)
             cols = []
             for nm in fam.load_names:
                 arr = self.tables[nm]
@@ -1274,8 +1387,10 @@ class TracedCompiler(Compiler):
     to the host a span ``m2v_sync.<site>``, each upload a span
     ``m2v_sync.upload``, and ``fetch`` a span ``m2v_result`` around its
     reads (``tracing``): one ``m2v_sync.*`` span for each of the call's
-    ``host_syncs``.  ``order`` keeps the
-    evaluated nodes, from which ``charges`` computes their byte traffic.
+    ``host_syncs``; each constant written out is a span
+    ``m2v_const.materialize``, one for each of ``consts_materialized``.
+    ``order`` keeps the evaluated nodes, from which ``charges`` computes
+    their byte traffic.
     ``CompiledQuery`` uses it for ``cost_report`` and for a call while the
     profiler records; otherwise a call evaluates with ``Compiler`` and
     records nothing."""
@@ -1326,6 +1441,10 @@ class TracedCompiler(Compiler):
         with tracing.span("m2v_sync.upload"):
             return super()._upload(x, dtype)
 
+    def _materialize(self, val: Val) -> Val:
+        with tracing.span("m2v_const.materialize"):
+            return super()._materialize(val)
+
     def fetch(self, vals: List[Val]) -> List[np.ndarray]:
         with tracing.span("m2v_result"):
             return super().fetch(vals)
@@ -1362,6 +1481,10 @@ class CompiledQuery:
         # each result column's count (where it is on the device) and rows;
         # after ``run``, all but the result's
         self.host_syncs = 0
+        # after a call, the constants its consumers took as scalars and
+        # those written out (``Compiler.consts_scalar`` and
+        # ``consts_materialized``)
+        self.consts_scalar = self.consts_materialized = 0
 
     def device_args(self, upload=None) -> Tuple[torch.Tensor, ...]:
         """The loaded columns on the device, copied there on first use: by
@@ -1384,6 +1507,8 @@ class CompiledQuery:
         args = self.device_args(c._upload)
         out = c.trace(self.vexps, dict(zip(self.loads, args)))
         self.join_log, self.host_syncs = c.join_log, c.host_syncs
+        self.consts_scalar = c.consts_scalar
+        self.consts_materialized = c.consts_materialized
         return out, c
 
     def cost_report(self, hbm_gbps: Optional[float] = None,
