@@ -27,7 +27,11 @@ Phases (any failure ends the run with a nonzero exit; nothing is caught):
      split into two launches, 1, 3 and 5 rows and a ragged last tile,
      position and source views off any alignment, consecutive positions,
      a random permutation, valid = 0 on the host and on the device, and a
-     one-row source), and times kernel, plain version and library
+     one-row source; the expression fold on Q6's call as the engine makes
+     it, over every row, 1,000,003 rows and unaligned views, also equal to
+     the library expression, and on the 30 random programs of
+     tests/torch_exprfold_cases.py at both counts), and times kernel,
+     plain version and library
      yardstick with CUDA events (the scatter at 2%, 15% and 100%; the
      gather at the engine's shapes (a)-(f) of tools/bench_gather.py, with
      the bytes counted in 32-byte sectors beside the byte bound);
@@ -56,7 +60,8 @@ Phases (any failure ends the run with a nonzero exit; nothing is caught):
      Each run is row-exact against its oracle (Q4, Q4 over all orders and
      Q16 in order, Q3's top 10 tie-tolerantly), and the engine kernels'
      launch counters are
-     read around it (Q6 and every Q1 run must compact; the fused Q1 runs
+     read around it (Q6 and every Q1 run must compact; Q6 launches the
+     expression fold once and no Q1 run launches it; the fused Q1 runs
      launch the fused aggregate once; the general-join runs launch the
      compaction and both gathers between them; each ordered run launches
      the compaction, the gather and the scatter); the shape of each engine
@@ -543,6 +548,9 @@ KERNELS = {
         replaces="tools/probe_radix.py:65"),
     "probes": dict(source="mplan2vdl_tpu_torch/engine/kernels/csrc/probes.cu",
                    replaces="tools/probe_mosaic.py:39"),
+    "exprfold": dict(
+        source="mplan2vdl_tpu_torch/engine/kernels/csrc/exprfold.cu",
+        replaces="none: XLA's loop fusion of a one-group fold's tree"),
 }
 
 # the wrapper module and counter attribute of each kernel's launches: the
@@ -552,7 +560,8 @@ COUNTERS = {"compact": ("compact", "launches"),
             "multiagg": ("multiagg", "launches"),
             "scatter": ("scatter", "launches"),
             "small_gather": ("sorted_gather", "small_launches"),
-            "multiagg_mxu": ("multiagg_mxu", "launches")}
+            "multiagg_mxu": ("multiagg_mxu", "launches"),
+            "exprfold": ("exprfold", "launches")}
 # ... and the probe kernels, counted over the probe tools' runs
 PROBE_COUNTERS = {"radix_rank": ("radix_rank", "launches"),
                   "probes": ("probes", "launches")}
@@ -1424,7 +1433,8 @@ KERNEL_FUNCTIONS = {"compact": ("compact_kernel",),
                     "multiagg": ("lane_kernel", "shared_kernel"),
                     "scatter": ("scatter_kernel",),
                     "small_gather": ("small_gather_kernel",),
-                    "multiagg_mxu": ("mxu_kernel", "fast_kernel")}
+                    "multiagg_mxu": ("mxu_kernel", "fast_kernel"),
+                    "exprfold": ("expr_fold_kernel",)}
 
 
 # Itanium-mangled template argument types of the kernels
@@ -1920,6 +1930,7 @@ class Smoke:
         self.small_gather_kernel()
         self.mxu_kernel(fam, cols, gid)
         self.radix_kernel()
+        self.exprfold_kernel(m19)
 
     def mxu_kernel(self, fam, cols, gid):
         """The tensor-core aggregate on Q1's sum specs (the family's sums
@@ -2249,6 +2260,101 @@ class Smoke:
                          f"int32[{m}] random positions", ms, plain_ms,
                          lib_ms, _bound_ms(nbytes), timed_launches)
 
+    def exprfold_kernel(self, q6_mask):
+        """The expression fold: Q6's call as the engine makes it (its
+        program, immediates and resident lineitem columns), exact against
+        the plain version and the library expression over every row, over
+        a ragged count of them and over unaligned views; the random
+        programs of ``tests/torch_exprfold_cases.py`` (every leaf dtype,
+        64-bit values, sum, min and max) at every lineitem row and at a
+        ragged count; one launch a call.  Then Q6's call timed beside its
+        plain version and ``torch.where(mask, price * disc, 0).sum()``
+        (``q6_mask``, Q6's mask, already made)."""
+        torch = self.torch
+        from mplan2vdl_tpu_torch import mplan as M
+        from mplan2vdl_tpu_torch import vir as V
+        from mplan2vdl_tpu_torch.engine import datagen, exprfold, lower
+        from mplan2vdl_tpu_torch.engine.kernels import exprfold as kx
+
+        tests = os.path.join(REPO, "tests")
+        if tests not in sys.path:
+            sys.path.insert(0, tests)
+        import torch_exprfold_cases as cases
+
+        def check(what, leaves, program, imms, foldop, fold32):
+            before = kx.launches
+            got = kx.expr_fold(leaves, program, imms, foldop, fold32)
+            if kx.launches != before + 1:
+                raise AssertionError(f"exprfold {what}: "
+                                     f"{kx.launches - before} launches")
+            want = kx.expr_fold_plain(leaves, program, imms, foldop, fold32)
+            e = self.equal(f"exprfold {what}", got, want)
+            self.max_err["exprfold"] = max(self.max_err["exprfold"], e)
+            return got
+
+        calls = []
+        fold = lower.expr_fold
+
+        def record(*a):
+            calls.append(a)
+            return fold(*a)
+
+        cq = lower.CompiledQuery(self.cfg, lower.plan_to_vexps(
+            PLAN_Q6, self.cfg), self.st, device=self.dev)
+        lower.expr_fold = record
+        try:
+            cq()
+        finally:
+            lower.expr_fold = fold
+        if cq.expr_folds != 1 or len(calls) != 1:
+            raise AssertionError(f"Q6: {cq.expr_folds} one-pass folds, "
+                                 f"{len(calls)} calls, not one")
+        (plan,) = cq.expr_plans.values()
+        leaves, program, imms, foldop, fold32 = calls[0]
+        n = leaves[0].shape[0]
+        col = dict(zip((v.vx.name[1] for v in plan.leaves), leaves))
+        price, disc = col["l_extendedprice"], col["l_discount"]
+        got = check(f"Q6 {len(leaves)} int32[{n}]", *calls[0])
+        lib = [int(torch.where(q6_mask, price * disc, 0).sum()),
+               int(q6_mask.sum())]
+        if got.tolist() != lib:
+            raise AssertionError(f"exprfold Q6: {got.tolist()}, library "
+                                 f"expression {lib}")
+        ragged = 1_000_003
+        check(f"Q6 n={ragged}", [t[:ragged] for t in leaves], program, imms,
+              foldop, fold32)
+        check("Q6 unaligned views", [t[3:] for t in leaves], program, imms,
+              foldop, fold32)
+        del cq
+
+        st = datagen.generate(sf=0.001, seed=5)
+        cases.add_leaves(st, 5)
+        widths = set()
+        for i, (name, p) in enumerate(cases.card_plans(
+                st.make_catalog(), V, M, exprfold.plan_fold)):
+            for rows in (n, ragged):
+                data = cases.leaf_data(torch, p, rows, self.dev,
+                                       self.args.seed + i)
+                check(f"{name} {len(p.program)} steps n={rows}", data,
+                      p.program, cases.immediates(p), p.foldop, p.fold32)
+                widths.add(any(t.dtype == torch.int64 for t in data))
+                del data
+        if widths != {False, True}:
+            raise AssertionError("exprfold: the random programs read int64 "
+                                 f"leaves in none or all ({widths})")
+
+        kx.launches = 0
+        args = (leaves, program, imms, foldop, fold32)
+        ms = self.cuda_ms(lambda: kx.expr_fold(*args), REPS)
+        timed_launches = kx.launches
+        plain_ms = self.cuda_ms(lambda: kx.expr_fold_plain(*args), 3)
+        lib_ms = self.cuda_ms(lambda: torch.where(
+            q6_mask, price * disc, 0).sum(), REPS)
+        nbytes = sum(t.numel() * t.element_size() for t in leaves) + 24
+        self.kernel_time("exprfold", f"Q6's fold: {len(leaves)} int32[{n}] "
+                         f"leaves, {len(program)} steps", ms, plain_ms,
+                         lib_ms, _bound_ms(nbytes), timed_launches)
+
     def kernel_time(self, name, shape, ms, plain_ms, lib_ms, bound_ms,
                     launches, **extra):
         rec = {"kernel": name, "shape": shape, "ms": ms,
@@ -2373,7 +2479,7 @@ class Smoke:
             st, [("lineitem", "l_quantity")]) else "Q1 (auto gate: unfused)"
         # (name, plan, MPLAN2VDL_FUSED_AGG, check, kernels it must launch);
         # MPLAN2VDL_MXU_AGG is set for the Q1_MXU run only
-        runs = [("Q6", PLAN_Q6, None, chk["q6"], ("compact",)),
+        runs = [("Q6", PLAN_Q6, None, chk["q6"], ("compact", "exprfold")),
                 (q1_auto, PLAN_Q1, None, chk["q1"],
                  ("compact", "multiagg") if q1_auto.startswith("Q1 fused")
                  else ("compact",))]
@@ -2568,6 +2674,12 @@ class Smoke:
                     "multiagg"]) != (1, 1):
                 raise AssertionError(f"{name}: {launches}, not one launch "
                                      "each of multiagg_mxu and multiagg")
+            # Q6's sum is computed in one pass; Q1's folds take the fused
+            # family or the grouped path
+            want = {PLAN_Q6: 1, PLAN_Q1: 0}.get(plan)
+            if want is not None and launches["exprfold"] != want:
+                raise AssertionError(f"{name}: {launches['exprfold']} "
+                                     f"exprfold launches, not {want}")
             if name != Q1_MXU and launches["multiagg_mxu"]:
                 raise AssertionError(f"{name} launched multiagg_mxu with "
                                      "MPLAN2VDL_MXU_AGG unset")

@@ -26,8 +26,9 @@ from ... import tracing
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
-SOURCES = ("compact.cu", "gather.cu", "multiagg.cu", "multiagg_mxu.cu",
-           "probes.cu", "radix_rank.cu", "scatter.cu", "small_gather.cu")
+SOURCES = ("compact.cu", "exprfold.cu", "gather.cu", "multiagg.cu",
+           "multiagg_mxu.cu", "probes.cu", "radix_rank.cu", "scatter.cu",
+           "small_gather.cu")
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(_HERE)))
 BUILD_DIR = os.path.join(_REPO, "build", "mplan2vdl_tpu_torch")
 LIB_PATH = os.path.join(BUILD_DIR, "libkernels.so")
@@ -52,6 +53,7 @@ _U = ctypes.c_ulonglong
 _SIGNATURES = {
     "m2v_compact": ([_P, _L, _P, _U, _L, _P, _L, _I, _P], _I),
     "m2v_compact_tile": ([], _I),
+    "m2v_expr_fold": ([_P, _P, _I, _L, _P, _P, _I, _I, _I, _P, _P], _I),
     "m2v_gather": ([_P, _P, _P, _I, _P, _I, _L, _L, _L, _P, _P], _I),
     "m2v_gather_blocks_per_sm": ([_I, _I, _I], _I),
     "m2v_gather_max_sources": ([], _I),

@@ -23,11 +23,14 @@ group key), the sparse sort-based group-by, ``Fold FDistinct`` (a sort of
 ``Semisort`` and ``SortPerm`` (stable sorts), ``Like`` and ``DictMap`` (a
 lookup table over the code domain, built once per compiled query),
 ``CrossProduct``, and ``JoinIndex`` with all seven sides (sort-merge, or
-the dense-domain join for a small build side).  On the GPU, compaction,
-the gathers, the monotone scatter and the fused aggregate (with
-MPLAN2VDL_MXU_AGG=1 its sums on the tensor cores) run as hand-written CUDA
-kernels (``kernels/``); the sorts and the other scatters are torch ops, as
-the JAX engine computes them outside its kernels too.  A node of an
+the dense-domain join for a small build side).  A sum, min or max over a
+constant group key whose mask and payload are row expressions takes one
+pass over their leaf columns (``exprfold.py``).  On the GPU, compaction,
+the gathers, the monotone scatter, the fused aggregate (with
+MPLAN2VDL_MXU_AGG=1 its sums on the tensor cores) and that one-pass fold
+run as hand-written CUDA kernels (``kernels/``); the sorts and the other
+scatters are torch ops, as the JAX engine computes them outside its
+kernels too.  A node of an
 unknown kind raises ``NotImplementedError`` naming it.
 """
 
@@ -36,7 +39,7 @@ from __future__ import annotations
 import os
 import re
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple, Union
+from typing import TYPE_CHECKING, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -52,10 +55,14 @@ from .columnstore import ColumnStore
 from . import mergesearch, scan
 from .kernels import segred
 from .kernels.compact import compact_positions
+from .kernels.exprfold import DTYPES as EXPR_DTYPES, expr_fold
 from .kernels.multiagg import AggSpec, fused_group_aggregate
 from .kernels.multiagg_mxu import fused_group_aggregate_mxu, mxu_agg_on
 from .kernels.scatter import monotone_scatter
 from .kernels.sorted_gather import SMALL_TABLE, gather_many
+
+if TYPE_CHECKING:
+    from .exprfold import ExprFold
 
 # The fused-aggregate gate: on automatically when any loaded column holds
 # at least this many rows (MPLAN2VDL_FUSED_AGG=1/0 forces it either way).
@@ -161,6 +168,19 @@ def _mask_tail(data: torch.Tensor, valid, length: int) -> torch.Tensor:
     idx = torch.arange(length, device=data.device)
     return torch.where(idx < valid, data, torch.zeros((), dtype=data.dtype,
                                                       device=data.device))
+
+
+def _dense_tail(agg: torch.Tensor, counts: torch.Tensor, dt,
+                L_out: int) -> Val:
+    """A dense fold's output from its per-id aggregates and row counts:
+    the occupied ids' aggregates, ascending, in ``dt``.  Min and max over
+    an empty id hold identity sentinels; the occupancy compaction drops
+    those slots."""
+    occ = counts > 0
+    ngroups = occ.sum()
+    out = agg[_sel_positions(occ, L_out).long()]
+    return Val(data=_mask_tail(out.to(dt), ngroups, L_out), valid=ngroups,
+               length=L_out)
 
 
 def like_to_regex(pattern: str) -> "re.Pattern":
@@ -335,14 +355,17 @@ class Compiler:
     ``host_syncs`` the host's blocking transfers: the counts read and the
     host values uploaded while evaluating, and with ``fetch`` the result
     transfer's reads.  ``consts_scalar`` counts the constants a consumer
-    took as a scalar, ``consts_materialized`` those ``_force`` wrote out."""
+    took as a scalar, ``consts_materialized`` those ``_force`` wrote out.
+    ``expr_plans`` maps a fold's key to its one-pass program
+    (``exprfold.plan``); ``expr_folds`` counts the folds that took it."""
 
     def __init__(self, store: ColumnStore, device: torch.device,
                  fold_map: Optional[dict] = None,
                  families: Optional[list] = None,
                  gather_mates: Optional[dict] = None,
                  dense_sibs: Optional[dict] = None,
-                 lookups: Optional[dict] = None):
+                 lookups: Optional[dict] = None,
+                 expr_plans: Optional[dict] = None):
         self.store = store
         self.device = device
         self.fold_map = fold_map or {}
@@ -350,9 +373,11 @@ class Compiler:
         self.gather_mates = gather_mates or {}
         self.dense_sibs = dense_sibs or {}
         self.lookups = lookups if lookups is not None else {}
+        self.expr_plans = expr_plans or {}
         self.host_syncs = 0
         self.consts_scalar = 0
         self.consts_materialized = 0
+        self.expr_folds = 0
 
     def _monotone(self, v: V.Vexp) -> bool:
         """Positions/values known non-decreasing: the static rules of
@@ -1054,6 +1079,11 @@ class Compiler:
         fam = self.fold_map.get(v.skey)
         if fam is not None:
             return self._eval_fused(v, fam)
+        plan = self.expr_plans.get(v.skey)
+        if plan is not None:
+            out = self._eval_expr_fold(v, vx, plan)
+            if out is not None:
+                return out
         dt = torch_dtype_for(v.info)
         g = self.eval(vx.fgroups)
         domain = vx.fgroups.info.bounds[1] + 1
@@ -1088,14 +1118,51 @@ class Compiler:
         else:
             agg = segred.one_group_reduce(data, art["ok"], art["key"],
                                           domain, opname)
-        occ = counts > 0
-        ngroups = occ.sum()
-        sel = _sel_positions(occ, L_out)
-        # min/max over empty segments yield identity sentinels; the
-        # occupancy compaction drops those slots
-        out = agg[sel.long()]
-        out = _mask_tail(out.to(dt), ngroups, L_out)
-        return Val(data=out, valid=ngroups, length=L_out)
+        return _dense_tail(agg, counts, dt, L_out)
+
+    def _eval_expr_fold(self, v: V.Vexp, vx: V.Fold,
+                        plan: "ExprFold") -> Optional[Val]:
+        """A planned fold (``exprfold.plan``) in one pass over its leaf
+        columns, where every leaf and constant spans the key's rows
+        (``valid`` a host int equal to the length, as a resident column's
+        is) and the row count is under 2^31; None otherwise, before
+        anything is counted, and ``_eval_fold`` takes its usual path."""
+        g = self.eval(vx.fgroups)
+        n = g.length
+
+        def whole(val: Val) -> bool:
+            return (isinstance(val.valid, int) and val.valid == n
+                    and val.length == n)
+
+        if not (0 < n < 2**31 and whole(g) and _const(g) is not None):
+            return None
+        leaves = [self.eval(x) for x in plan.leaves]
+        if not all(whole(x) and x.data is not None
+                   and x.data.dtype in EXPR_DTYPES for x in leaves):
+            return None
+        for c in plan.consts:
+            if c is not None:
+                val = self.eval(c)
+                k = _const(val)
+                info = torch.iinfo(torch_dtype_for(c.info))
+                if (k is None or not whole(val)
+                        or not info.min <= k <= info.max):
+                    return None
+        domain = vx.fgroups.info.bounds[1] + 1
+        key = min(max(self._take(g), 0), domain - 1)
+        imms = []
+        for c, imm, shift in zip(plan.consts, plan.imms, plan.shifts):
+            if c is not None:
+                imm = self._take(self.eval(c))
+            # a shift by 63 or more moves as far as one by 63
+            imms.append(max(-63, min(imm, 63)) if shift else imm)
+        res = expr_fold([x.data for x in leaves], plan.program, imms,
+                        plan.foldop, plan.fold32)
+        self.expr_folds += 1
+        tab = res.new_zeros((2, domain))
+        tab[:, key] = res
+        return _dense_tail(tab[0], tab[1], torch_dtype_for(v.info),
+                           min(domain, n))
 
     def _eval_fold_distinct(self, vx: V.Fold, dt, domain: int,
                             L_out: int) -> Val:
@@ -1390,7 +1457,8 @@ class TracedCompiler(Compiler):
     ``host_syncs``; each constant written out is a span
     ``m2v_const.materialize``, one for each of ``consts_materialized``.
     ``order`` keeps the evaluated nodes, from which ``charges`` computes
-    their byte traffic.
+    their byte traffic; ``expr_reads`` the leaf columns that each one-pass
+    fold read in place of its children.
     ``CompiledQuery`` uses it for ``cost_report`` and for a call while the
     profiler records; otherwise a call evaluates with ``Compiler`` and
     records nothing."""
@@ -1398,6 +1466,7 @@ class TracedCompiler(Compiler):
     def trace(self, vexps: List[V.Vexp], tables: Dict[Name, torch.Tensor]
               ) -> List[Val]:
         self.order: List[V.Vexp] = []
+        self.expr_reads: Dict[int, Tuple[V.Vexp, ...]] = {}
         return super().trace(vexps, tables)
 
     def eval(self, v: V.Vexp) -> Val:
@@ -1416,13 +1485,15 @@ class TracedCompiler(Compiler):
         """(node, bytes, output bytes) of each evaluated node in evaluation
         order, the rule the JAX package's ``engine/hloprof.py`` applies to
         HLO instructions: its output buffer, plus the buffers of its
-        operands already evaluated when it was.  Loads are charged to the
-        nodes that read them, as HLO parameters are."""
+        operands already evaluated when it was (of a one-pass fold, its
+        leaf columns).  Loads are charged to the nodes that read them, as
+        HLO parameters are."""
         done, out = set(), []
         for v in self.order:
             if not isinstance(v.vx, V.Load):
                 ob = _nbytes(self.memo[v.skey])
-                ib = sum(_nbytes(self.memo[c.skey]) for c in _children(v.vx)
+                reads = self.expr_reads.get(v.skey) or _children(v.vx)
+                ib = sum(_nbytes(self.memo[c.skey]) for c in reads
                          if c.skey in done)
                 out.append((v, ib + ob, ob))
             done.add(v.skey)
@@ -1444,6 +1515,13 @@ class TracedCompiler(Compiler):
     def _materialize(self, val: Val) -> Val:
         with tracing.span("m2v_const.materialize"):
             return super()._materialize(val)
+
+    def _eval_expr_fold(self, v: V.Vexp, vx: V.Fold,
+                        plan: "ExprFold") -> Optional[Val]:
+        out = super()._eval_expr_fold(v, vx, plan)
+        if out is not None:
+            self.expr_reads[v.skey] = plan.leaves
+        return out
 
     def fetch(self, vals: List[Val]) -> List[np.ndarray]:
         with tracing.span("m2v_result"):
@@ -1468,6 +1546,9 @@ class CompiledQuery:
             from .fuse import plan_fusions
 
             self.fold_map, self.families = plan_fusions(vexps)
+        from .exprfold import plan
+
+        self.expr_plans = plan(vexps, self.fold_map)
         self.gather_mates = gather_mate_map(vexps)
         sibs: Dict[int, list] = {}
         for lk, rk in join_key_pairs(vexps):
@@ -1483,8 +1564,10 @@ class CompiledQuery:
         self.host_syncs = 0
         # after a call, the constants its consumers took as scalars and
         # those written out (``Compiler.consts_scalar`` and
-        # ``consts_materialized``)
+        # ``consts_materialized``), and the folds computed in one pass
+        # (``Compiler.expr_folds``)
         self.consts_scalar = self.consts_materialized = 0
+        self.expr_folds = 0
 
     def device_args(self, upload=None) -> Tuple[torch.Tensor, ...]:
         """The loaded columns on the device, copied there on first use: by
@@ -1503,12 +1586,14 @@ class CompiledQuery:
 
     def _run(self, cls) -> Tuple[List[Val], Compiler]:
         c = cls(self.store, self.device, self.fold_map, self.families,
-                self.gather_mates, self.dense_sibs, self.lookups)
+                self.gather_mates, self.dense_sibs, self.lookups,
+                self.expr_plans)
         args = self.device_args(c._upload)
         out = c.trace(self.vexps, dict(zip(self.loads, args)))
         self.join_log, self.host_syncs = c.join_log, c.host_syncs
         self.consts_scalar = c.consts_scalar
         self.consts_materialized = c.consts_materialized
+        self.expr_folds = c.expr_folds
         return out, c
 
     def cost_report(self, hbm_gbps: Optional[float] = None,

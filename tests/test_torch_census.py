@@ -36,9 +36,10 @@ import torch_census_cases as census
 from mplan2vdl_tpu.engine import datagen as jdatagen
 from mplan2vdl_tpu.engine import lower as jlower
 from mplan2vdl_tpu_torch.engine import datagen, lower
-from mplan2vdl_tpu_torch.engine.kernels import (compact, multiagg,
-                                                multiagg_mxu, scatter,
-                                                segred, sorted_gather)
+from mplan2vdl_tpu_torch.engine.kernels import (compact, exprfold,
+                                                multiagg, multiagg_mxu,
+                                                scatter, segred,
+                                                sorted_gather)
 
 NEW_PLANS = {"PLAN_DENSE_JOIN": chip_smoke.oracle_dense_join,
              "PLAN_DISTINCT_DENSE": chip_smoke.oracle_distinct_dense,
@@ -96,6 +97,8 @@ def _count_launches(monkeypatch):
         lower.fused_group_aggregate, multiagg, "launches"))
     monkeypatch.setattr(lower, "fused_group_aggregate_mxu", counted(
         lower.fused_group_aggregate_mxu, multiagg_mxu, "launches"))
+    monkeypatch.setattr(lower, "expr_fold", counted(
+        lower.expr_fold, exprfold, "launches"))
     # query_phase restores lower.monotone_scatter from scatter's after
     # each run, so the counting wrapper goes on both
     wrapped = counted(scatter.monotone_scatter, scatter, "launches")
