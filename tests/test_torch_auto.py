@@ -1,7 +1,7 @@
 """The plan analysis of the port's distributor (``parallel/auto.py``)
 against the JAX package's, with no ranks.
 
-For every in-code plan (``chip_smoke.AUTO_PLANS``) and every fuzz and
+For every in-code plan (``torch_plans.AUTO_PLANS``) and every fuzz and
 corner plan of ``torch_auto_cases.FUZZ_CASES`` (each built with each
 package's own ``mplan``), the port's ``_rewrite_distinct_folds``,
 ``_collect_folds``, ``_plan_part_joins`` and ``_plan_regions`` must give
@@ -10,7 +10,7 @@ the DAG (``torch_auto_cases.canon_map``: interning numbers differ between
 the packages), and the port's ``NotDistributable`` decision, with its
 text, JAX's, also under each of the two switches (MPLAN2VDL_NO_PART_JOIN,
 MPLAN2VDL_NO_SPARSE_JOIN).  The analysis functions themselves are checked to be the same
-code as JAX's, docstrings aside.  ``chip_smoke.EXPECTED_NOT_DISTRIBUTABLE``
+code as JAX's, docstrings aside.  ``torch_plans.EXPECTED_NOT_DISTRIBUTABLE``
 is JAX's verdict at the key widths of the card's scale.
 """
 
@@ -21,10 +21,10 @@ import inspect
 import pytest
 import torch
 
-import chip_smoke
 import mplan2vdl_tpu
 import mplan2vdl_tpu_torch
 import torch_auto_cases as A
+import torch_plans
 from mplan2vdl_tpu.engine import datagen as jdatagen
 from mplan2vdl_tpu.engine import lower as jlower
 from mplan2vdl_tpu.parallel import auto as jauto
@@ -35,7 +35,7 @@ from mplan2vdl_tpu_torch.parallel import dist as tdist
 
 PKGS = {"port": (mplan2vdl_tpu_torch, tdatagen, tlower, tauto),
         "jax": (mplan2vdl_tpu, jdatagen, jlower, jauto)}
-CASES = [f"cli_{p}" for p in sorted(chip_smoke.AUTO_PLANS)] + A.FUZZ_CASES
+CASES = [f"cli_{p}" for p in sorted(torch_plans.AUTO_PLANS)] + A.FUZZ_CASES
 # the functions the port keeps line for line
 ANALYSIS = ("_collect_folds", "_joins_under", "_contains_right_join",
             "_rowid_chain", "_frame_pos_chain", "_chain_through",
@@ -79,7 +79,7 @@ def stores():
                 st = A.make_store(datagen, which)
             cfg = st.make_catalog()
             if which == "card_keys":
-                A.widen_keys(cfg, chip_smoke.CARD_SF)
+                A.widen_keys(cfg, torch_plans.CARD_SF)
             cache[pkg, which] = (st, cfg)
         return cache[pkg, which]
 
@@ -92,7 +92,7 @@ def _vexps(stores, pkg, case):
         which, plan = (("card_keys", case[10:]) if case.startswith("card")
                        else ("cli", case[4:]))
         st, cfg = stores(pkg, which)
-        return st, cfg, lower.plan_to_vexps(chip_smoke.AUTO_PLANS[plan], cfg)
+        return st, cfg, lower.plan_to_vexps(torch_plans.AUTO_PLANS[plan], cfg)
     st, cfg = stores(pkg, A.store_of(case))
     return st, cfg, A.case_vexps(package, case, st, cfg)[0]
 
@@ -235,14 +235,14 @@ def test_not_distributable_decision_matches_jax(stores, case):
     assert got == want
 
 
-@pytest.mark.parametrize("plan", sorted(chip_smoke.AUTO_PLANS))
+@pytest.mark.parametrize("plan", sorted(torch_plans.AUTO_PLANS))
 def test_expected_not_distributable_is_jax_verdict(stores, plan):
-    """chip_smoke.EXPECTED_NOT_DISTRIBUTABLE holds JAX's verdict on each
+    """torch_plans.EXPECTED_NOT_DISTRIBUTABLE holds JAX's verdict on each
     plan of phase 8 at the key widths of the card's scale (CARD_SF's key
     bounds over the CLI store): the refusal's text for the plans it names,
     and none for the rest; the port decides the same."""
     got, want = _decisions(stores, f"card_keys_{plan}")
-    assert got == want == chip_smoke.EXPECTED_NOT_DISTRIBUTABLE.get(plan)
+    assert got == want == torch_plans.EXPECTED_NOT_DISTRIBUTABLE.get(plan)
 
 
 def test_card_keys_are_the_generators():

@@ -1,5 +1,5 @@
 """The port's plan distributor (``parallel/auto.py``) against the JAX
-package's, over the in-code plans of ``chip_smoke.AUTO_PLANS``.
+package's, over the in-code plans of ``torch_plans.AUTO_PLANS``.
 
 Worlds of 4 and 1 gloo ranks (``torch_dist_cases.Ranks``, started once for
 the module) run ``auto.distribute`` on every plan over a generated store
@@ -26,9 +26,10 @@ import pytest
 import chip_smoke
 import torch_auto_cases as A
 import torch_dist_cases as C
+import torch_plans
 
 WORLDS = (4, 1)
-PLANS = sorted(chip_smoke.AUTO_PLANS)
+PLANS = sorted(torch_plans.AUTO_PLANS)
 # plans whose distribution the JAX group stage raises on (see
 # test_q17_distributes_where_jax_raises)
 JAX_RAISES = ("q17", "dense_join")
@@ -66,7 +67,7 @@ def jax_side():
         key = (plan, world, no_part_join)
         if key not in cache:
             mesh = dist.make_mesh(jax.devices()[:world])
-            vexps = plan_to_vexps(chip_smoke.AUTO_PLANS[plan], cfg)
+            vexps = plan_to_vexps(torch_plans.AUTO_PLANS[plan], cfg)
             if no_part_join:
                 os.environ["MPLAN2VDL_NO_PART_JOIN"] = "1"
             try:
@@ -130,10 +131,10 @@ def test_describe_matches_jax(ranks, jax_side, plan, world):
 
 
 @pytest.mark.parametrize("world", WORLDS)
-@pytest.mark.parametrize("plan", sorted(chip_smoke.AUTO_PATHS))
+@pytest.mark.parametrize("plan", sorted(torch_plans.AUTO_PATHS))
 def test_partitioned_paths_match_jax(ranks, jax_side, plan, world):
     """The plans of phase 8 that must take a partitioned shuffle join take
-    it as JAX does, with the right frame chip_smoke.AUTO_PATHS names:
+    it as JAX does, with the right frame torch_plans.AUTO_PATHS names:
     the hot join's heavy-key round finds JAX's heavy keys, build counts
     and capacities, leaving keys with pairs in the exchange; the nation
     count shards orders as an outer right frame; the self-join has no
@@ -142,7 +143,7 @@ def test_partitioned_paths_match_jax(ranks, jax_side, plan, world):
 
     want = jax_side(plan, world)
     assert want[0] == "rows", want
-    assert chip_smoke.AUTO_PATHS[plan] in want[2]
+    assert torch_plans.AUTO_PATHS[plan] in want[2]
     for res in ranks[world].case(f"cli_{plan}"):
         assert str(res["heavy_plan"]) == want[3]
         assert int(res["part_joins"]) == 1
@@ -152,7 +153,7 @@ def test_partitioned_paths_match_jax(ranks, jax_side, plan, world):
         assert int(res["heavy"]) == (plan == "hot_join")
     if plan != "hot_join":
         return
-    sides = chip_smoke.hot_join_sides(datagen.generate(sf=A.CLI_SF,
+    sides = torch_plans.hot_join_sides(datagen.generate(sf=A.CLI_SF,
                                                        seed=A.CLI_SEED))
     paired = set(sides["keys"][sides["lc"].sum(0) * sides["rc"] > 0].tolist())
     hk = {int(k) for k in want[3].split()[0][3:].split(",")} & paired
@@ -167,7 +168,7 @@ def test_q17_distributes_where_jax_raises(ranks, jax_side, world):
     (mplan2vdl_tpu/parallel/auto.py:1583, :1638).  The port's eager
     compiler sizes the join itself: every rank returns the single-device
     port's rows, and at Q17_SF (where parts pass its filter)
-    chip_smoke.oracle_q17's."""
+    torch_plans.oracle_q17's."""
     from mplan2vdl_tpu_torch.engine import datagen
 
     want = jax_side("q17", world)
@@ -177,7 +178,7 @@ def test_q17_distributes_where_jax_raises(ranks, jax_side, world):
         assert str(res["nd"]) == ""
         _same(_cols(res, "c"), _cols(res, "s"), True)
         assert "group domain:" in str(res["describe"])
-    oracle = chip_smoke.oracle_q17(datagen.generate(sf=A.Q17_SF,
+    oracle = torch_plans.oracle_q17(datagen.generate(sf=A.Q17_SF,
                                                     seed=A.CLI_SEED))
     assert int(oracle[0][0]) > 0
     for res in ranks[world].case("q17_rows"):
@@ -192,13 +193,13 @@ def test_dense_join_distributes_where_jax_raises(ranks, jax_side, world):
     """PLAN_DENSE_JOIN (lineitem against its per-l_shipdate average, Q17's
     decorrelated shape) meets the same fault of the JAX group stage as
     Q17; every rank of the port returns the single-device port's rows and
-    chip_smoke.oracle_dense_join's."""
+    torch_plans.oracle_dense_join's."""
     from mplan2vdl_tpu_torch.engine import datagen
 
     want = jax_side("dense_join", world)
     assert want[0] == "error", want
     assert "JoinIndex size not resolved" in str(want[1])
-    oracle = chip_smoke.oracle_dense_join(datagen.generate(
+    oracle = torch_plans.oracle_dense_join(datagen.generate(
         sf=A.CLI_SF, seed=A.CLI_SEED))
     assert len(oracle[0]) > 1
     for res in ranks[world].case("cli_dense_join"):
@@ -374,7 +375,7 @@ def test_chip_smoke_auto_phase_on_cpu(tmp_path, monkeypatch, capsys):
     assert not torch.distributed.is_initialized()
     out = capsys.readouterr().out.splitlines()
     cells = [json.loads(ln) for ln in out if ln.startswith('{"auto": ')]
-    assert [c["auto"] for c in cells] == list(chip_smoke.AUTO_PLANS)
+    assert [c["auto"] for c in cells] == list(torch_plans.AUTO_PLANS)
     for c in cells:
         assert "not_distributable" not in c, c
         assert c["world_size"] == 1 and len(c["warm_ms"]) == 3
@@ -411,9 +412,9 @@ def test_chip_smoke_auto_phase_fails_on_a_refusal(tmp_path, monkeypatch,
         return distribute(*args)
 
     monkeypatch.setattr(auto, "distribute", refuse_first)
-    monkeypatch.setattr(chip_smoke, "AUTO_PLANS", {
-        k: chip_smoke.AUTO_PLANS[k] for k in ("q6", "q3")})
-    monkeypatch.setattr(chip_smoke, "EXPECTED_NOT_DISTRIBUTABLE", expected)
+    monkeypatch.setattr(torch_plans, "AUTO_PLANS", {
+        k: torch_plans.AUTO_PLANS[k] for k in ("q6", "q3")})
+    monkeypatch.setattr(torch_plans, "EXPECTED_NOT_DISTRIBUTABLE", expected)
     s = _auto_smoke(monkeypatch)
     store = "file://" + str(tmp_path / "store")
     if expected.get("q6") != "refused":

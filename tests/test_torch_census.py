@@ -22,6 +22,7 @@ CPU.
 """
 
 import json
+import os
 import types
 
 import numpy as np
@@ -33,6 +34,7 @@ import mplan2vdl_tpu_torch
 import test_distinct
 import test_fuzz
 import torch_census_cases as census
+import torch_plans
 from mplan2vdl_tpu.engine import datagen as jdatagen
 from mplan2vdl_tpu.engine import lower as jlower
 from mplan2vdl_tpu_torch.engine import datagen, lower
@@ -41,10 +43,10 @@ from mplan2vdl_tpu_torch.engine.kernels import (compact, exprfold,
                                                 scatter, segred,
                                                 sorted_gather)
 
-NEW_PLANS = {"PLAN_DENSE_JOIN": chip_smoke.oracle_dense_join,
-             "PLAN_DISTINCT_DENSE": chip_smoke.oracle_distinct_dense,
-             "PLAN_DISTINCT_WIDE": chip_smoke.oracle_distinct_wide,
-             "PLAN_Q4_ALL": chip_smoke.oracle_q4_all}
+NEW_PLANS = {"PLAN_DENSE_JOIN": torch_plans.oracle_dense_join,
+             "PLAN_DISTINCT_DENSE": torch_plans.oracle_distinct_dense,
+             "PLAN_DISTINCT_WIDE": torch_plans.oracle_distinct_wide,
+             "PLAN_Q4_ALL": torch_plans.oracle_q4_all}
 
 
 def test_census_copies_equal_the_jax_tests():
@@ -99,11 +101,8 @@ def _count_launches(monkeypatch):
         lower.fused_group_aggregate_mxu, multiagg_mxu, "launches"))
     monkeypatch.setattr(lower, "expr_fold", counted(
         lower.expr_fold, exprfold, "launches"))
-    # query_phase restores lower.monotone_scatter from scatter's after
-    # each run, so the counting wrapper goes on both
-    wrapped = counted(scatter.monotone_scatter, scatter, "launches")
-    monkeypatch.setattr(scatter, "monotone_scatter", wrapped)
-    monkeypatch.setattr(lower, "monotone_scatter", wrapped)
+    monkeypatch.setattr(lower, "monotone_scatter", counted(
+        lower.monotone_scatter, scatter, "launches"))
     for fn in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
         monkeypatch.setattr(torch.cuda, fn, lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
@@ -128,7 +127,7 @@ def test_chip_smoke_census_phase_on_cpu(monkeypatch, capsys):
         "semi_anti", "distinct", "tpch"]
     want = {"fuzz": 40, "ordered": 40, "null": 7, "corners": 5,
             "semi_anti": 2, "distinct": 2,
-            "tpch": len(chip_smoke.AUTO_PLANS) - len(chip_smoke.CENSUS_SKIP)}
+            "tpch": len(torch_plans.AUTO_PLANS) - len(torch_plans.CENSUS_SKIP)}
     for ln in lines:
         family = "fuzz" if ln["census"].startswith("fuzz") else ln["census"]
         assert ln["plans"] == ln["checked"] == want[family], ln
@@ -173,21 +172,23 @@ def test_chip_smoke_query_phase_on_cpu(monkeypatch, capsys):
     runs = [json.loads(ln) for ln in out if ln.startswith('{"query": ')]
     # the fifteen runs and the four new ones; below the fused gate's rows
     # Q1 runs forced-fused besides
-    assert len(runs) == 20 and runs[-1]["query"] == chip_smoke.Q4_ALL_RUN
+    assert len(runs) == 20 and runs[-1]["query"] == torch_plans.Q4_ALL_RUN
     paths = {p["path"]: p for p in (json.loads(ln) for ln in out
                                     if ln.startswith('{"path": '))}
-    assert list(paths) == [chip_smoke.DENSE_JOIN_RUN,
-                           chip_smoke.DISTINCT_DENSE_RUN,
-                           chip_smoke.DISTINCT_WIDE_RUN,
-                           chip_smoke.Q4_ALL_RUN, chip_smoke.SEMISORT_RUN]
-    dj = paths[chip_smoke.DENSE_JOIN_RUN]
-    assert dj["dense_joins"] == 1 and {j["path"] for j in dj["joins"]} == {
-        "dense"}
-    assert paths[chip_smoke.DISTINCT_DENSE_RUN]["distinct_domains"] == [8]
-    wide = paths[chip_smoke.DISTINCT_WIDE_RUN]["pair_sorts"]
+    assert list(paths) == [torch_plans.DENSE_JOIN_RUN,
+                           torch_plans.DISTINCT_DENSE_RUN,
+                           torch_plans.DISTINCT_WIDE_RUN,
+                           torch_plans.Q4_ALL_RUN, chip_smoke.SEMISORT_RUN]
+    # the join counts are the join log's: one entry per side of the join
+    dj = paths[torch_plans.DENSE_JOIN_RUN]
+    assert dj["dense_joins"] == len(dj["joins"]) == 2
+    assert dj["merge_joins"] == 0
+    assert {j["path"] for j in dj["joins"]} == {"dense"}
+    assert paths[torch_plans.DISTINCT_DENSE_RUN]["distinct_domains"] == [8]
+    wide = paths[torch_plans.DISTINCT_WIDE_RUN]["pair_sorts"]
     assert [p["packed"] for p in wide] == [False] and wide[0][
         "key_bits"] > 40
-    rs = paths[chip_smoke.Q4_ALL_RUN]["repeat_scatters"]
+    rs = paths[torch_plans.Q4_ALL_RUN]["repeat_scatters"]
     assert rs[0]["n"] > s.n // 2 > rs[0]["distinct"]
     # the gather census sees every gather.cu launch of the runs, in
     # classes of each order
@@ -256,7 +257,7 @@ def test_profile_names_each_gather_by_the_first_runs_class(
     s.args.profile = str(tmp_path)
     s.st = datagen.generate(sf=0.01, seed=1)
     cfg = s.st.make_catalog()
-    cq = lower.CompiledQuery(cfg, lower.plan_to_vexps(chip_smoke.PLAN_Q3,
+    cq = lower.CompiledQuery(cfg, lower.plan_to_vexps(torch_plans.PLAN_Q3,
                                                       cfg), s.st,
                              device="cpu")
     first, gather_many = [], lower.gather_many
@@ -282,6 +283,40 @@ def test_profile_names_each_gather_by_the_first_runs_class(
     assert lower.gather_many is gather_many
 
 
+def test_engine_seam_restores_what_it_wraps(monkeypatch):
+    """``engine_seam`` puts each wrapper in its name's place, a Compiler
+    method's too, and sets the switches while it is open; it restores both
+    on exit, also when the block raises."""
+    monkeypatch.setenv("MPLAN2VDL_FUSED_AGG", "0")
+    monkeypatch.delenv("MPLAN2VDL_MXU_AGG", raising=False)
+    gather, distinct = lower.gather_many, lower.Compiler._eval_fold_distinct
+    seen = []
+
+    def spy(fn, *a, **k):
+        seen.append(fn.__name__)
+        return fn(*a, **k)
+
+    st = datagen.generate(sf=0.002, seed=1)
+    cfg = st.make_catalog()
+    cq = lower.CompiledQuery(cfg, lower.plan_to_vexps(
+        torch_plans.PLAN_DISTINCT_DENSE, cfg), st, device="cpu")
+    env = {"MPLAN2VDL_FUSED_AGG": None, "MPLAN2VDL_MXU_AGG": "1"}
+    with pytest.raises(RuntimeError, match="in the block"):
+        with chip_smoke.engine_seam(
+                wrap={"gather_many": spy, "Compiler._eval_fold_distinct": spy},
+                env=env):
+            assert "MPLAN2VDL_FUSED_AGG" not in os.environ
+            assert os.environ["MPLAN2VDL_MXU_AGG"] == "1"
+            lower.gather_many([torch.arange(5)], torch.tensor([1, 3]), 2)
+            cq()
+            raise RuntimeError("in the block")
+    assert seen[0] == "gather_many" and "_eval_fold_distinct" in seen
+    assert lower.gather_many is gather
+    assert lower.Compiler._eval_fold_distinct is distinct
+    assert os.environ["MPLAN2VDL_FUSED_AGG"] == "0"
+    assert "MPLAN2VDL_MXU_AGG" not in os.environ
+
+
 def test_query_phase_refuses_a_path_not_taken():
     """A merge join in the dense-join run, or a packed pair sort in the
     two-sort run, fails the run's path check."""
@@ -290,10 +325,10 @@ def test_query_phase_refuses_a_path_not_taken():
     rec = {"dense_joins": 0, "merge_joins": 1, "distinct_domains": [],
            "pair_sorts": []}
     with pytest.raises(AssertionError, match="did not take its path"):
-        s.check_path(chip_smoke.DENSE_JOIN_RUN, rec,
+        s.check_path(torch_plans.DENSE_JOIN_RUN, rec,
                      [{"side": "left", "path": "merge"}], [])
     with pytest.raises(AssertionError, match="did not take its path"):
-        s.check_path(chip_smoke.DISTINCT_WIDE_RUN, dict(
+        s.check_path(torch_plans.DISTINCT_WIDE_RUN, dict(
             rec, pair_sorts=[{"packed": True}]), [], [])
 
 
@@ -337,7 +372,7 @@ def test_new_plan_matches_jax_and_its_oracle(stores, monkeypatch, plan):
     monkeypatch.setattr(lower, "repeat_scatter", repeat)
     # the two-sort fallback from SF 0.01 on (see the module docstring)
     monkeypatch.setattr(lower, "PACK_LIMIT", 2**40)
-    text = getattr(chip_smoke, plan)
+    text = getattr(torch_plans, plan)
     tq = lower.CompiledQuery(tcfg, lower.plan_to_vexps(text, tcfg), ts,
                              device="cpu")
     got = tq()
@@ -345,7 +380,7 @@ def test_new_plan_matches_jax_and_its_oracle(stores, monkeypatch, plan):
                                 js)()
     assert census.rows(got.columns) == census.rows(want.columns)
     assert len(got.columns[0]) > 0
-    assert chip_smoke.same_rows(got.columns, NEW_PLANS[plan](ts))
+    assert torch_plans.same_rows(got.columns, NEW_PLANS[plan](ts))
     if plan == "PLAN_DENSE_JOIN":
         assert seen["dense"] == 1
         assert {j["path"] for j in tq.join_log} == {"dense"}

@@ -2,8 +2,8 @@
 
 ``compile`` (under every flag set, and with ``--dot``), ``explain`` and
 ``genplans`` print the same bytes as the JAX CLI on every in-code plan
-(chip_smoke.CLI_PLANS), against metadata files written from a generated
-store by ``chip_smoke.write_metadata``; the reference UX (no subcommand
+(torch_plans.CLI_PLANS), against metadata files written from a generated
+store by ``torch_plans.write_metadata``; the reference UX (no subcommand
 means compile, no FILE means stdin) holds through the port's ``main``.
 ``run --cpu`` prints the JAX ``run --cpu`` CSV (Q3 as a row multiset: the
 engines may order the pairs within a run of equal join keys differently),
@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import torch_plans
 from mplan2vdl_tpu import catalog as jcatalog
 from mplan2vdl_tpu import cli as jcli
 from mplan2vdl_tpu.engine import datagen as jdatagen
@@ -32,7 +32,7 @@ from mplan2vdl_tpu_torch.engine import datagen as tdatagen
 from mplan2vdl_tpu_torch.engine import lower as tlower
 
 SF, SEED = 0.01, 7
-PLANS = sorted(chip_smoke.CLI_PLANS)
+PLANS = sorted(torch_plans.CLI_PLANS)
 META_FILES = ("bounds.csv", "storage.csv", "schema.msqldump",
               "dictionary.csv")
 FLAG_SETS = {"default": [], "push": ["-p"], "no_cleanup": ["--no-cleanup"],
@@ -57,9 +57,9 @@ def files(tmp_path_factory):
     """The metadata files of a generated store and one file per plan."""
     root = tmp_path_factory.mktemp("cli")
     store = tdatagen.generate(sf=SF, seed=SEED)
-    chip_smoke.write_metadata(store, str(root / "meta"))
+    torch_plans.write_metadata(store, str(root / "meta"))
     (root / "plans").mkdir()
-    for name, text in chip_smoke.CLI_PLANS.items():
+    for name, text in torch_plans.CLI_PLANS.items():
         (root / "plans" / f"{name}.mplan").write_text(text)
     for name, text in DOT_TEXTS.items():
         (root / f"{name}.txt").write_text(text)
@@ -115,7 +115,7 @@ def test_compile_matches_jax(files, capsys, plan, flags):
 
 @pytest.mark.parametrize("plan", PLANS + sorted(DOT_TEXTS))
 def test_dot_matches_jax(files, capsys, plan):
-    path = (_plan(files, plan) if plan in chip_smoke.CLI_PLANS
+    path = (_plan(files, plan) if plan in torch_plans.CLI_PLANS
             else str(files["root"] / f"{plan}.txt"))
     (got, _), (want, _) = _both(capsys, ["compile", path, *files["flags"],
                                          "--dot"])
@@ -151,7 +151,7 @@ def test_no_subcommand_defaults_to_compile(files, capsys):
 
 
 def test_no_subcommand_reads_stdin(files, capsys, monkeypatch):
-    text = chip_smoke.CLI_PLANS["q6"]
+    text = torch_plans.CLI_PLANS["q6"]
     outs = []
     for main in (tcli.main, jcli.main):
         monkeypatch.setattr(sys, "stdin", io.StringIO(text))
@@ -313,7 +313,7 @@ def test_run_cpu_matches_jax(files, capsys, monkeypatch, run):
 def q5():
     ts = tdatagen.generate(sf=SF, seed=SEED)
     tcfg = ts.make_catalog()
-    return tlower.compile_plan_text(chip_smoke.PLAN_Q5, tcfg, ts,
+    return tlower.compile_plan_text(torch_plans.PLAN_Q5, tcfg, ts,
                                     device="cpu")
 
 
@@ -324,7 +324,7 @@ def test_cost_report_scan_bytes_match_jax(q5):
     js = jdatagen.generate(sf=SF, seed=SEED)
     jcfg = js.make_catalog()
     jq = jlower.CompiledQuery(jcfg, jlower.plan_to_vexps(
-        chip_smoke.PLAN_Q5, jcfg), js)
+        torch_plans.PLAN_Q5, jcfg), js)
     rep = q5.cost_report()
     args = q5.device_args()
     assert rep["scan_bytes"] == sum(a.numel() * a.element_size()

@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 from torch.profiler import ProfilerActivity, profile
 
-import chip_smoke
+import torch_plans
 from mplan2vdl_tpu_torch import mplan as M
 from mplan2vdl_tpu_torch import tracing
 from mplan2vdl_tpu_torch import vir as V
@@ -226,7 +226,7 @@ def test_scan_queries_write_no_constant(tpch_store, q, fused, monkeypatch):
     cq = _query(tpch_store, q, fused, monkeypatch)
     if q == "q1":
         want = tpch.q1(tpch_store[0])
-        want = [want[k] for k in chip_smoke.Q1_COLUMNS]
+        want = [want[k] for k in torch_plans.Q1_COLUMNS]
     else:
         want = [tpch.q6(tpch_store[0])["revenue"]]
     for _ in range(2):
@@ -245,7 +245,7 @@ def test_constants_that_feed_gathers_are_written_out(tpch_store,
     plain = cq()
     written = cq.consts_materialized
     assert written >= 1
-    assert _rows(plain.columns) == _rows(chip_smoke.oracle_q5(tpch_store[0]))
+    assert _rows(plain.columns) == _rows(torch_plans.oracle_q5(tpch_store[0]))
     want = cq._fetch(Forced)
     for g, w in zip(plain.columns, want.columns, strict=True):
         np.testing.assert_array_equal(g, w)

@@ -4,9 +4,9 @@ The port's plans (TPC-H Q6, Q1, a lineitem scan-filter-project, the
 FK-join path: Q3 in its no-order form, Q5 and a sparse group-by over
 l_orderkey, and the general-join path: Q9 in its no-order form, Q13, Q17
 and a group-by over substring(c_phone, 1, 2), all defined once in
-chip_smoke.py) run through the port (``device="cpu"``), through the JAX
+tests/torch_plans.py) run through the port (``device="cpu"``), through the JAX
 ``CompiledQuery`` on the CPU and through the oracles (the port's
-``oracle/tpch``, numpy mask-and-take, and chip_smoke's numpy join oracles),
+``oracle/tpch``, numpy mask-and-take, and torch_plans' numpy join oracles),
 at two seeds; Q1 runs with the fused multi-aggregate path forced on and off
 on both engines, and forced on with its sums on the tensor-core contraction
 (MPLAN2VDL_MXU_AGG=1).  Every comparison is exact: the engine is integer
@@ -18,7 +18,7 @@ others row for row, in order.
 import numpy as np
 import pytest
 
-import chip_smoke
+import torch_plans
 from mplan2vdl_tpu.engine import datagen as jdatagen
 from mplan2vdl_tpu.engine import lower as jlower
 from mplan2vdl_tpu_torch.engine import datagen as tdatagen
@@ -27,18 +27,18 @@ from mplan2vdl_tpu_torch.oracle import tpch
 
 SF = 0.01
 SEEDS = (7, 11)
-PLANS = {"q6": chip_smoke.PLAN_Q6, "q1": chip_smoke.PLAN_Q1,
-         "filter_project": chip_smoke.PLAN_FILTER_PROJECT,
-         "q3": chip_smoke.PLAN_Q3, "q5": chip_smoke.PLAN_Q5,
-         "sparse_groupby": chip_smoke.PLAN_SPARSE_GROUPBY,
-         "q9": chip_smoke.PLAN_Q9, "q13": chip_smoke.PLAN_Q13,
-         "q17": chip_smoke.PLAN_Q17,
-         "substr_groupby": chip_smoke.PLAN_SUBSTR_GROUPBY}
-JOIN_ORACLES = {"q3": chip_smoke.oracle_q3, "q5": chip_smoke.oracle_q5,
-                "sparse_groupby": chip_smoke.oracle_sparse_groupby,
-                "q9": chip_smoke.oracle_q9, "q13": chip_smoke.oracle_q13,
-                "q17": chip_smoke.oracle_q17,
-                "substr_groupby": chip_smoke.oracle_substr_groupby}
+PLANS = {"q6": torch_plans.PLAN_Q6, "q1": torch_plans.PLAN_Q1,
+         "filter_project": torch_plans.PLAN_FILTER_PROJECT,
+         "q3": torch_plans.PLAN_Q3, "q5": torch_plans.PLAN_Q5,
+         "sparse_groupby": torch_plans.PLAN_SPARSE_GROUPBY,
+         "q9": torch_plans.PLAN_Q9, "q13": torch_plans.PLAN_Q13,
+         "q17": torch_plans.PLAN_Q17,
+         "substr_groupby": torch_plans.PLAN_SUBSTR_GROUPBY}
+JOIN_ORACLES = {"q3": torch_plans.oracle_q3, "q5": torch_plans.oracle_q5,
+                "sparse_groupby": torch_plans.oracle_sparse_groupby,
+                "q9": torch_plans.oracle_q9, "q13": torch_plans.oracle_q13,
+                "q17": torch_plans.oracle_q17,
+                "substr_groupby": torch_plans.oracle_substr_groupby}
 # compared as row multisets
 GENERAL_JOIN = ("q9", "q13", "q17", "substr_groupby")
 RUNS = [("q6", None), ("q1", "1"), ("q1", "0"), ("q1", "mxu"),
@@ -64,11 +64,11 @@ def _oracle(store, plan):
         return [tpch.q6(store)["revenue"]]
     if plan == "q1":
         want = tpch.q1(store)
-        return [want[k] for k in chip_smoke.Q1_COLUMNS]
+        return [want[k] for k in torch_plans.Q1_COLUMNS]
     ship = store.columns[("lineitem", "l_shipdate")]
     m = (ship >= tpch.day(1994, 1, 1)) & (ship < tpch.day(1995, 1, 1))
     return [store.columns[("lineitem", c)][m]
-            for c in chip_smoke.FP_COLUMNS]
+            for c in torch_plans.FP_COLUMNS]
 
 
 def _rows(cols):
@@ -134,9 +134,9 @@ def test_join_routing(stores, monkeypatch, small_table):
     monkeypatch.setattr(tlower, "gather_many", spy_gather)
     monkeypatch.setattr(tlower, "monotone_scatter", spy_scatter)
     monkeypatch.setattr(tlower, "SMALL_TABLE", small_table)
-    got = tlower.compile_plan_text(chip_smoke.PLAN_Q5, tcfg, ts,
+    got = tlower.compile_plan_text(torch_plans.PLAN_Q5, tcfg, ts,
                                    device="cpu")()
-    assert _rows(got.columns) == _rows(chip_smoke.oracle_q5(ts))
+    assert _rows(got.columns) == _rows(torch_plans.oracle_q5(ts))
     assert calls["scatter"] == 3
     assert calls["small"] and max(calls["small"]) <= small_table
     # nation (25 rows) and region (5 rows) gathers stay small either way
@@ -169,7 +169,7 @@ def test_mxu_routing(stores, monkeypatch, mxu):
 
     monkeypatch.setattr(tlower, "fused_group_aggregate_mxu", spy_mxu)
     monkeypatch.setattr(tlower, "fused_group_aggregate", spy_fused)
-    cq = tlower.compile_plan_text(chip_smoke.PLAN_Q1, tcfg, ts, device="cpu")
+    cq = tlower.compile_plan_text(torch_plans.PLAN_Q1, tcfg, ts, device="cpu")
     got = cq()
     specs = list(cq.families[0].specs) + [tlower.AggSpec(base=None, bits=1)]
     sums = [s for s in specs if s.op == "sum"]
@@ -181,7 +181,7 @@ def test_mxu_routing(stores, monkeypatch, mxu):
         assert calls == {"mxu": [], "fused": [specs]}
     want = tpch.q1(ts)
     assert _rows(got.columns) == _rows(
-        [want[k] for k in chip_smoke.Q1_COLUMNS])
+        [want[k] for k in torch_plans.Q1_COLUMNS])
 
 
 def test_fused_gate_default_threshold(stores, monkeypatch):
@@ -189,7 +189,7 @@ def test_fused_gate_default_threshold(stores, monkeypatch):
     24M-row default); the environment forces it either way."""
     monkeypatch.delenv("MPLAN2VDL_FUSED_AGG", raising=False)
     ts, tcfg, _, _ = stores[SEEDS[0]]
-    vexps = tlower.plan_to_vexps(chip_smoke.PLAN_Q1, tcfg)
+    vexps = tlower.plan_to_vexps(torch_plans.PLAN_Q1, tcfg)
     assert tlower.FUSED_AUTO_ROWS == 24_000_000
     assert not tlower.CompiledQuery(tcfg, vexps, ts, device="cpu").families
     monkeypatch.setattr(tlower, "FUSED_AUTO_ROWS", 1000)
@@ -200,10 +200,10 @@ def test_fused_gate_default_threshold(stores, monkeypatch):
 
 def test_decoded_matches_jax(stores):
     ts, tcfg, js, jcfg = stores[SEEDS[0]]
-    got = tlower.compile_plan_text(chip_smoke.PLAN_Q1, tcfg, ts,
+    got = tlower.compile_plan_text(torch_plans.PLAN_Q1, tcfg, ts,
                                    device="cpu")().decoded(ts)
-    want = jlower.CompiledQuery(
-        jcfg, jlower.plan_to_vexps(chip_smoke.PLAN_Q1, jcfg), js)().decoded(js)
+    want = jlower.CompiledQuery(jcfg, jlower.plan_to_vexps(
+        torch_plans.PLAN_Q1, jcfg), js)().decoded(js)
     assert [g[0] for g in got] == [w[0] for w in want]
     for (_, g), (_, w) in zip(got, want):
         np.testing.assert_array_equal(g, w)

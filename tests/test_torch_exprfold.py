@@ -22,8 +22,8 @@ import os
 import numpy as np
 import pytest
 
-import chip_smoke
 import torch_exprfold_cases as cases
+import torch_plans
 from mplan2vdl_tpu import mplan as JM
 from mplan2vdl_tpu import vir as JV
 from mplan2vdl_tpu.engine import datagen as jdatagen
@@ -203,7 +203,7 @@ def test_scan_queries(tpch_store, q, fused, monkeypatch):
     cq = _query(tpch_store, q, fused, monkeypatch)
     if q == "q1":
         want = tpch.q1(tpch_store[0])
-        want = [want[k] for k in chip_smoke.Q1_COLUMNS]
+        want = [want[k] for k in torch_plans.Q1_COLUMNS]
     else:
         want = [tpch.q6(tpch_store[0])["revenue"]]
     for _ in range(2):

@@ -68,10 +68,13 @@ def _port_modules():
 
 
 def test_import_pulls_in_no_jax():
-    """In a fresh interpreter (this one has JAX loaded by conftest)."""
+    """In a fresh interpreter (this one has JAX loaded by conftest): the
+    port's modules and the plans and oracles the tests share with
+    chip_smoke.py (tests/torch_plans.py)."""
     code = (
         "import importlib, json, sys\n"
-        f"names = {_port_modules()!r}\n"
+        f"sys.path.insert(0, {os.path.join(REPO, 'tests')!r})\n"
+        f"names = {_port_modules()!r} + ['torch_plans']\n"
         "for n in names: importlib.import_module(n)\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -80,6 +83,7 @@ def test_import_pulls_in_no_jax():
     loaded = json.loads(out.strip().splitlines()[-1])
     assert len(_port_modules()) > 25
     assert "mplan2vdl_tpu_torch.engine.lower" in loaded
+    assert "torch_plans" in loaded and "chip_smoke" not in loaded
     for mod in ("engine.kernels.multiagg_mxu", "engine.kernels.radix_rank",
                 "engine.kernels.probes", "tools.probe_radix",
                 "tools.probe_kernels", "cli", "fe.tree_parser", "dot",
@@ -100,9 +104,11 @@ def _imports(path):
 
 
 def test_source_scan_finds_no_jax_import():
-    # chip_smoke.py imports the census plans on the card
+    # chip_smoke.py imports the census plans and the shared plans and
+    # oracles on the card
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "tests", "torch_census_cases.py")]
+             os.path.join(REPO, "tests", "torch_census_cases.py"),
+             os.path.join(REPO, "tests", "torch_plans.py")]
     for root, _, fs in os.walk(PORT):
         files += [os.path.join(root, f) for f in fs if f.endswith(".py")]
     assert len(files) > 25
@@ -111,6 +117,21 @@ def test_source_scan_finds_no_jax_import():
         assert os.path.join(PORT, rel) in files, rel
     bad = [(f, m) for f in files for m in _imports(f) if _banned(m)]
     assert bad == []
+
+
+# the tests of chip_smoke.py's own phases; every other test module takes
+# the plans and oracles from tests/torch_plans.py
+CARD_PHASE_TESTS = {"test_torch_census.py", "test_torch_auto_dist.py",
+                    "test_torch_parallel.py", "test_torch_guard.py"}
+
+
+def test_only_the_card_phase_tests_import_chip_smoke():
+    tests = os.path.join(REPO, "tests")
+    files = sorted(f for f in os.listdir(tests) if f.endswith(".py"))
+    assert "torch_plans.py" in files and len(files) > 50
+    importers = {f for f in files
+                 if "chip_smoke" in _imports(os.path.join(tests, f))}
+    assert importers <= CARD_PHASE_TESTS, sorted(importers - CARD_PHASE_TESTS)
 
 
 def test_prefix_rule():
@@ -128,12 +149,12 @@ def test_default_device_raises_without_cuda(monkeypatch):
     from mplan2vdl_tpu_torch.engine import datagen
     from mplan2vdl_tpu_torch.engine.lower import CompiledQuery, plan_to_vexps
 
-    import chip_smoke
+    import torch_plans
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     store = datagen.generate(sf=0.002, seed=1)
     cfg = store.make_catalog()
-    vexps = plan_to_vexps(chip_smoke.PLAN_Q6, cfg)
+    vexps = plan_to_vexps(torch_plans.PLAN_Q6, cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CompiledQuery(cfg, vexps, store)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -26,7 +26,7 @@ import re
 import numpy as np
 import pytest
 
-import chip_smoke
+import torch_plans
 from mplan2vdl_tpu import mplan as jM
 from mplan2vdl_tpu import passes as jpasses
 from mplan2vdl_tpu import vir as jV
@@ -134,7 +134,7 @@ def test_dense_matches_merge(stores, monkeypatch, seed, plan):
             got, want, _, tq = _run_corner(stores, seed, plan)
         else:
             got, want, tq = _both(stores, seed, getattr(
-                chip_smoke, f"PLAN_{plan.upper()}"))
+                torch_plans, f"PLAN_{plan.upper()}"))
         assert _rows(got.columns) == _rows(want.columns)
         return _rows(got.columns), {j["path"] for j in tq.join_log}
 
@@ -158,7 +158,7 @@ def test_dense_path_needs_ascending_probes_past_small_table(stores,
     says; Q13's customer keys ascend, so its join stays dense."""
     monkeypatch.setattr(tlower, "SMALL_TABLE", 100)
     for plan, path in (("PLAN_Q17", "merge"), ("PLAN_Q13", "dense")):
-        got, want, tq = _both(stores, SEEDS[0], getattr(chip_smoke, plan))
+        got, want, tq = _both(stores, SEEDS[0], getattr(torch_plans, plan))
         assert _rows(got.columns) == _rows(want.columns)
         assert {j["path"] for j in tq.join_log} == {path}
 
@@ -290,9 +290,9 @@ def test_dictmap_matches_jax_and_oracle(stores, seed, tab, col, length,
                                                            tV.DictMap)]
     assert len(dmap) == 1
     assert (len(dmap[0].vx.mapping) <= 64) == (size == "le64")
-    derived, _ = chip_smoke.substr_codes(ts, tab, col, 1, length)
+    derived, _ = torch_plans.substr_codes(ts, tab, col, 1, length)
     codes = np.asarray([derived[int(x)] for x in ts.columns[(tab, col)]])
-    oracle = chip_smoke._group([codes], [(np.ones(len(codes), np.int64),
+    oracle = torch_plans._group([codes], [(np.ones(len(codes), np.int64),
                                           np.add)])
     assert _rows(got.columns) == _rows(want.columns) == _rows(oracle)
 

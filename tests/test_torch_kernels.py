@@ -18,7 +18,7 @@ import torch
 
 import jax.numpy as jnp
 
-import chip_smoke
+import torch_plans
 
 from mplan2vdl_tpu.engine.kernels import compact as jcompact
 from mplan2vdl_tpu.engine.kernels import multiagg as jmultiagg
@@ -422,8 +422,8 @@ def test_small_gather_clips_without_tail_repeat():
 def _scatter_cases():
     """(id, pos, src, L) over the cases of tests/test_scatter_kernel.py and
     the edges of csrc/scatter.cu's output tiles and walk chunks (the one
-    copy of both lists is chip_smoke's)."""
-    return chip_smoke.scatter_cases() + chip_smoke.scatter_edge_cases(
+    copy of both lists is torch_plans')."""
+    return torch_plans.scatter_cases() + torch_plans.scatter_edge_cases(
         tscatter.TILE, tscatter.CHUNK)
 
 
@@ -618,13 +618,12 @@ def test_lane_path_takes_every_engine_family(monkeypatch):
     """The kernel's fast path (lane-private tables) takes every family that
     fuse.plan_fusions can emit at Q1's shape, alone and split as the MXU
     routing splits it; the general path takes the rest."""
-    import chip_smoke
     from mplan2vdl_tpu_torch.engine import datagen, fuse, lower
 
     assert tmultiagg.LANE_MAX_GROUPS == fuse.MAX_DOMAIN
     st = datagen.generate(sf=0.01, seed=7)
     monkeypatch.setenv("MPLAN2VDL_FUSED_AGG", "1")
-    cq = lower.compile_plan_text(chip_smoke.PLAN_Q1, st.make_catalog(), st,
+    cq = lower.compile_plan_text(torch_plans.PLAN_Q1, st.make_catalog(), st,
                                  device="cpu")
     (fam,) = cq.families
     specs = list(fam.specs) + [tmultiagg.AggSpec(base=None, bits=1)]
@@ -787,13 +786,12 @@ def test_mxu_fast_path_takes_every_engine_family(monkeypatch):
     fuse.plan_fusions can emit at Q1's shape under the MXU routing (the
     family's sums with the appended count), at 1 to fuse.MAX_DOMAIN
     groups; 17 groups and 13 sum specs take the general path."""
-    import chip_smoke
     from mplan2vdl_tpu_torch.engine import datagen, fuse, lower
 
     assert tmxu.FAST_MAX_GROUPS == fuse.MAX_DOMAIN
     st = datagen.generate(sf=0.01, seed=7)
     monkeypatch.setenv("MPLAN2VDL_FUSED_AGG", "1")
-    cq = lower.compile_plan_text(chip_smoke.PLAN_Q1, st.make_catalog(), st,
+    cq = lower.compile_plan_text(torch_plans.PLAN_Q1, st.make_catalog(), st,
                                  device="cpu")
     (fam,) = cq.families
     specs = list(fam.specs) + [tmultiagg.AggSpec(base=None, bits=1)]

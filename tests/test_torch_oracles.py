@@ -1,4 +1,5 @@
-"""chip_smoke.py's numpy join oracles against SQLite, on the CPU.
+"""The numpy join oracles of tests/torch_plans.py against SQLite, on the
+CPU.
 
 The oracles decide whether the port's join plans are right on the GPU,
 so they are held here against an independent SQL engine; the oracles of
@@ -16,7 +17,7 @@ import sqlite3
 import numpy as np
 import pytest
 
-import chip_smoke
+import torch_plans
 from mplan2vdl_tpu_torch.engine import datagen
 from mplan2vdl_tpu_torch.engine import lower
 
@@ -74,7 +75,7 @@ def _decode(store, tab, col, codes):
 
 def test_q3_oracle_matches_sqlite(store_db):
     store, db = store_db
-    key, revenue, date, prio = chip_smoke.oracle_q3(store)
+    key, revenue, date, prio = torch_plans.oracle_q3(store)
     got = sorted(zip(*[np.asarray(c, np.int64).tolist()
                        for c in (key, revenue, date, prio)]))
     want = sorted(tuple(r) for r in db.execute(f"""
@@ -91,7 +92,7 @@ def test_q3_oracle_matches_sqlite(store_db):
 
 def test_q5_oracle_matches_sqlite(store_db):
     store, db = store_db
-    name, revenue = chip_smoke.oracle_q5(store)
+    name, revenue = torch_plans.oracle_q5(store)
     got = sorted(zip(_decode(store, "nation", "n_name", name),
                      np.asarray(revenue, np.int64).tolist()))
     want = sorted(tuple(r) for r in db.execute("""
@@ -109,7 +110,7 @@ def test_q5_oracle_matches_sqlite(store_db):
 
 def test_sparse_groupby_oracle_matches_sqlite(store_db):
     store, db = store_db
-    cols = chip_smoke.oracle_sparse_groupby(store)
+    cols = torch_plans.oracle_sparse_groupby(store)
     got = sorted(zip(*[np.asarray(c, np.int64).tolist() for c in cols]))
     want = sorted(tuple(r) for r in db.execute(f"""
         SELECT l_orderkey, SUM(l_quantity), MIN({_day_sql("l_shipdate")}),
@@ -122,7 +123,7 @@ def test_sparse_groupby_oracle_matches_sqlite(store_db):
 
 def test_q9_oracle_matches_sqlite(store_db):
     store, db = store_db
-    name, year, profit = chip_smoke.oracle_q9(store)
+    name, year, profit = torch_plans.oracle_q9(store)
     got = sorted(zip(_decode(store, "nation", "n_name", name),
                      np.asarray(year, np.int64).tolist(),
                      np.asarray(profit, np.int64).tolist()))
@@ -142,7 +143,7 @@ def test_q9_oracle_matches_sqlite(store_db):
 
 def test_q13_oracle_matches_sqlite(store_db):
     store, db = store_db
-    cols = chip_smoke.oracle_q13(store)
+    cols = torch_plans.oracle_q13(store)
     got = sorted(zip(*[np.asarray(c, np.int64).tolist() for c in cols]))
     want = sorted(tuple(r) for r in db.execute("""
         SELECT c_count, COUNT(*)
@@ -161,7 +162,7 @@ def test_q17_oracle_matches_sqlite(store_db):
     """Q17 with the engine's exact-integer avg: sum / count of l_quantity
     (integer division at its two decimal digits), 0.2 of it at three."""
     store, db = store_db
-    (got,) = chip_smoke.oracle_q17(store)
+    (got,) = torch_plans.oracle_q17(store)
     (want,) = db.execute("""
         SELECT COALESCE(SUM(l_extendedprice), 0) FROM lineitem, part
         WHERE p_partkey = l_partkey AND p_brand = 'Brand#23'
@@ -175,8 +176,8 @@ def test_q17_oracle_matches_sqlite(store_db):
 
 def test_substr_groupby_oracle_matches_sqlite(store_db):
     store, db = store_db
-    code, n, total = chip_smoke.oracle_substr_groupby(store)
-    _, derived = chip_smoke.substr_codes(store, "customer", "c_phone", 1, 2)
+    code, n, total = torch_plans.oracle_substr_groupby(store)
+    _, derived = torch_plans.substr_codes(store, "customer", "c_phone", 1, 2)
     got = sorted(zip([derived[int(c)] for c in code],
                      np.asarray(n, np.int64).tolist(),
                      np.asarray(total, np.int64).tolist()))
@@ -201,7 +202,7 @@ def _in_order(got, want):
 
 def test_q4_oracle_matches_sqlite_and_port(store_db):
     store, db = store_db
-    prio, count = chip_smoke.oracle_q4(store)
+    prio, count = torch_plans.oracle_q4(store)
     got = sorted(zip(_decode(store, "orders", "o_orderpriority", prio),
                      np.asarray(count, np.int64).tolist()))
     want = sorted(tuple(r) for r in db.execute("""
@@ -212,14 +213,14 @@ def test_q4_oracle_matches_sqlite_and_port(store_db):
         GROUP BY o_orderpriority
     """))
     assert len(got) > 1 and got == want
-    assert _in_order(_port_run(store, chip_smoke.PLAN_Q4), [prio, count])
+    assert _in_order(_port_run(store, torch_plans.PLAN_Q4), [prio, count])
 
 
 def test_q3_top10_oracle_matches_sqlite_and_port(store_db):
     """Tie-tolerant: the (revenue, o_orderdate) keys of the ten rows, in
     order; rows tied at the cut may differ."""
     store, db = store_db
-    cols = chip_smoke.oracle_q3_top10(store)
+    cols = torch_plans.oracle_q3_top10(store)
     keys = list(zip(np.asarray(cols[1], np.int64).tolist(),
                     np.asarray(cols[2], np.int64).tolist()))
     want = db.execute(f"""
@@ -233,17 +234,17 @@ def test_q3_top10_oracle_matches_sqlite_and_port(store_db):
         ORDER BY rev DESC, odate LIMIT 10
     """).fetchall()
     assert len(keys) == 10 and keys == [(r[1], r[2]) for r in want]
-    port = _port_run(store, chip_smoke.PLAN_Q3_TOP10)
+    port = _port_run(store, torch_plans.PLAN_Q3_TOP10)
     assert list(zip(port[1].tolist(), port[2].tolist())) == keys
     # every oracle row is a row of Q3
     assert set(zip(*[np.asarray(c, np.int64).tolist() for c in cols])) <= \
         set(zip(*[np.asarray(c, np.int64).tolist()
-                  for c in chip_smoke.oracle_q3(store)]))
+                  for c in torch_plans.oracle_q3(store)]))
 
 
 def test_q16_oracle_matches_sqlite_and_port(store_db):
     store, db = store_db
-    brand, ptype, size, cnt = chip_smoke.oracle_q16(store)
+    brand, ptype, size, cnt = torch_plans.oracle_q16(store)
     got = sorted(zip(_decode(store, "part", "p_brand", brand),
                      _decode(store, "part", "p_type", ptype),
                      np.asarray(size, np.int64).tolist(),
@@ -259,7 +260,7 @@ def test_q16_oracle_matches_sqlite_and_port(store_db):
         GROUP BY p_brand, p_type, p_size
     """))
     assert len(got) > 100 and got == want
-    assert _in_order(_port_run(store, chip_smoke.PLAN_Q16),
+    assert _in_order(_port_run(store, torch_plans.PLAN_Q16),
                      [brand, ptype, size, cnt])
     # the order: supplier count descending, then the codes ascending
     order = np.lexsort((size, ptype, brand, -np.asarray(cnt, np.int64)))
@@ -271,7 +272,7 @@ def test_dense_join_oracle_matches_sqlite(store_db):
     """Each lineitem row against its ship day's average quantity (integer
     sum / count at two decimal digits)."""
     store, db = store_db
-    cols = chip_smoke.oracle_dense_join(store)
+    cols = torch_plans.oracle_dense_join(store)
     got = sorted(zip(*[np.asarray(c, np.int64).tolist() for c in cols]))
     want = sorted(tuple(r) for r in db.execute("""
         WITH t AS MATERIALIZED (
@@ -287,7 +288,7 @@ def test_dense_join_oracle_matches_sqlite(store_db):
 
 def test_distinct_dense_oracle_matches_sqlite(store_db):
     store, db = store_db
-    cols = chip_smoke.oracle_distinct_dense(store)
+    cols = torch_plans.oracle_distinct_dense(store)
     got = sorted(zip(*[np.asarray(c, np.int64).tolist() for c in cols]))
     want = sorted(tuple(r) for r in db.execute("""
         SELECT l_returnflag, l_linestatus, COUNT(DISTINCT l_partkey)
@@ -298,7 +299,7 @@ def test_distinct_dense_oracle_matches_sqlite(store_db):
 
 def test_distinct_wide_oracle_matches_sqlite(store_db):
     store, db = store_db
-    cols = chip_smoke.oracle_distinct_wide(store)
+    cols = torch_plans.oracle_distinct_wide(store)
     got = sorted(zip(*[np.asarray(c, np.int64).tolist() for c in cols]))
     want = sorted(tuple(r) for r in db.execute("""
         SELECT l_orderkey, l_partkey, COUNT(DISTINCT l_extendedprice)
@@ -311,7 +312,7 @@ def test_distinct_wide_oracle_matches_sqlite(store_db):
 
 def test_q4_all_oracle_matches_sqlite_and_port(store_db):
     store, db = store_db
-    prio, count = chip_smoke.oracle_q4_all(store)
+    prio, count = torch_plans.oracle_q4_all(store)
     got = sorted(zip(_decode(store, "orders", "o_orderpriority", prio),
                      np.asarray(count, np.int64).tolist()))
     want = sorted(tuple(r) for r in db.execute("""
@@ -321,7 +322,7 @@ def test_q4_all_oracle_matches_sqlite_and_port(store_db):
         GROUP BY o_orderpriority
     """))
     assert len(got) > 1 and got == want
-    assert _in_order(_port_run(store, chip_smoke.PLAN_Q4_ALL), [prio, count])
+    assert _in_order(_port_run(store, torch_plans.PLAN_Q4_ALL), [prio, count])
 
 
 # -------------------------- the plans of phase 8's partitioned-join paths
@@ -330,7 +331,7 @@ def test_hot_join_oracle_matches_sqlite(store_db):
     first orders: SQLite expands the pairs, the oracle counts them by
     key."""
     store, db = store_db
-    cols = chip_smoke.oracle_hot_join(store)
+    cols = torch_plans.oracle_hot_join(store)
     got = sorted(zip(*[np.asarray(c, np.int64).tolist() for c in cols]))
     want = sorted(tuple(r) for r in db.execute("""
         SELECT l.l_returnflag, COUNT(*), SUM(l.l_quantity),
@@ -342,14 +343,14 @@ def test_hot_join_oracle_matches_sqlite(store_db):
         GROUP BY l.l_returnflag
     """))
     assert len(got) > 1 and got == want
-    sides = chip_smoke.hot_join_sides(store)
+    sides = torch_plans.hot_join_sides(store)
     assert sides["rc"].sum() == db.execute(
         "SELECT COUNT(*) FROM lineitem WHERE l_orderkey < 9").fetchone()[0]
 
 
 def test_q13_nation_oracle_matches_sqlite(store_db):
     store, db = store_db
-    cols = chip_smoke.oracle_q13_nation(store)
+    cols = torch_plans.oracle_q13_nation(store)
     got = sorted(zip(*[np.asarray(c, np.int64).tolist() for c in cols]))
     want = sorted(tuple(r) for r in db.execute("""
         SELECT c_nationkey, COUNT(o_orderkey), COUNT(*)

@@ -18,7 +18,7 @@ package's own ``vir`` over the same store columns:
   ``fmask``, each also against a numpy count; the three plans of
   tests/test_distinct.py against the JAX engine and their numpy count.
 
-Plans: chip_smoke's TPC-H Q4 and Q16 row for row in order, Q3 with its
+Plans: torch_plans' TPC-H Q4 and Q16 row for row in order, Q3 with its
 ORDER BY ... LIMIT 10 tie-tolerantly (sorted per its order, and the same
 multiset of order-key tuples).  The ordered fuzz plans are in
 tests/test_torch_ordered_fuzz.py.
@@ -27,8 +27,8 @@ tests/test_torch_ordered_fuzz.py.
 import numpy as np
 import pytest
 
-import chip_smoke
 import test_distinct
+import torch_plans
 from mplan2vdl_tpu import mplan as jM
 from mplan2vdl_tpu import passes as jpasses
 from mplan2vdl_tpu import vir as jV
@@ -334,7 +334,7 @@ def _sorted_by(cols, spec):
 @pytest.mark.parametrize("seed", SEEDS)
 @pytest.mark.parametrize("plan", ["q4", "q16"])
 def test_ordered_plan_in_order(stores, seed, plan):
-    text = {"q4": chip_smoke.PLAN_Q4, "q16": chip_smoke.PLAN_Q16}[plan]
+    text = {"q4": torch_plans.PLAN_Q4, "q16": torch_plans.PLAN_Q16}[plan]
     got, want = _both(stores, seed, text)
     assert len(got[0]) > 1
     _equal(got, want)
@@ -342,7 +342,7 @@ def test_ordered_plan_in_order(stores, seed, plan):
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_q3_top10_tie_tolerant(stores, seed):
-    got, want = _both(stores, seed, chip_smoke.PLAN_Q3_TOP10)
+    got, want = _both(stores, seed, torch_plans.PLAN_Q3_TOP10)
     # revenue descending, then o_orderdate
     spec = [(1, True), (2, False)]
     assert len(got[0]) == 10 and _sorted_by(got, spec)

@@ -218,6 +218,7 @@ def test_chip_smoke_dist_phase_on_cpu(tmp_path, monkeypatch, capsys):
     import types
 
     import chip_smoke
+    import torch_plans
     from mplan2vdl_tpu_torch.engine import datagen
 
     for fn in ("synchronize", "reset_peak_memory_stats"):
@@ -239,13 +240,13 @@ def test_chip_smoke_dist_phase_on_cpu(tmp_path, monkeypatch, capsys):
         assert c["backend"] == "gloo" and c["world_size"] == 1
         assert len(c["ms"]) == 5 and c["median_ms"] > 0
 
-    want = chip_smoke.oracle_shuffle_groupby(s.st)
-    for g, w in zip(want[:5], chip_smoke.oracle_sparse_groupby(s.st),
+    want = torch_plans.oracle_shuffle_groupby(s.st)
+    for g, w in zip(want[:5], torch_plans.oracle_sparse_groupby(s.st),
                     strict=True):
         np.testing.assert_array_equal(g, w)
     li = {c: s.st.columns[("lineitem", c)]
           for c in ("l_orderkey", "l_shipdate", "l_extendedprice")}
-    m = li["l_shipdate"] >= chip_smoke._day(1995, 1, 1)
+    m = li["l_shipdate"] >= torch_plans._day(1995, 1, 1)
     by_key = {}
     for k, p in zip(li["l_orderkey"][m].tolist(),
                     li["l_extendedprice"][m].tolist()):

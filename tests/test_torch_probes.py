@@ -347,14 +347,14 @@ def test_mma_warp_cells_stay_below_2_31():
 
 
 def _contract_cases():
-    import chip_smoke
+    import torch_plans
 
-    return {c[0]: c for c in chip_smoke.probe_contract_cases()}
+    return {c[0]: c for c in torch_plans.probe_contract_cases()}
 
 
 @pytest.mark.parametrize("case", list(_contract_cases()))
 def test_contract_cases_model_and_plain(case):
-    """chip_smoke.py's contraction edge cases (the card holds the kernel
+    """torch_plans' contraction edge cases (chip_smoke.py holds the kernel
     against the plain version on them): the kernel's model and the plain
     version against numpy's int64 contraction."""
     name, op, a, rhs, kw = _contract_cases()[case]
@@ -527,44 +527,6 @@ def test_importing_the_kernels_builds_nothing():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "nothing built"
-
-
-def test_chip_smoke_lib_ab_swaps_the_launch_path(tmp_path, monkeypatch):
-    """``chip_smoke.py --old-lib FILE``: phase 4 runs each query with the
-    older file's launch path (every function of ``LAUNCH_PATH``) and the
-    checkout's in turns old, new, new, old, and restores the checkout's."""
-    import types
-
-    import chip_smoke
-    from mplan2vdl_tpu_torch.engine.kernels import _lib
-
-    old = tmp_path / "_lib_old.py"
-    old.write_text(
-        "CSRC = BUILD_DIR = LIB_PATH = None\n"
-        "_SIGNATURES = {'m2v_gather': None, 'm2v_gone': None}\n"
-        "loads = []\n"
-        "def lib():\n"
-        "    loads.append(LIB_PATH)\n"
-        + "".join(f"def {k}(*a):\n    return 'old'\n"
-                  for k in chip_smoke.LAUNCH_PATH if k != "lib"))
-    mod = chip_smoke.load_old_lib(str(old))
-    assert mod.LIB_PATH == _lib.LIB_PATH and mod.loads == [_lib.LIB_PATH]
-    assert list(mod._SIGNATURES) == ["m2v_gather"]
-    new = {k: getattr(_lib, k) for k in chip_smoke.LAUNCH_PATH}
-    seen = []
-
-    class Query:
-        def run(self):
-            seen.append(_lib.call is mod.call and _lib.stream is mod.stream)
-
-    s = chip_smoke.Smoke.__new__(chip_smoke.Smoke)
-    s.args = types.SimpleNamespace(old_lib=str(old))
-    s.old_lib = mod
-    monkeypatch.setattr(s, "sync", lambda: None, raising=False)
-    ab = s.lib_ab(Query())
-    assert set(ab) == {"old", "new"} and all(t >= 0 for t in ab.values())
-    assert seen == [True] * 5 + [False] * 10 + [True] * 5
-    assert {k: getattr(_lib, k) for k in chip_smoke.LAUNCH_PATH} == new
 
 
 # -------------------------------------------------------------- the tools

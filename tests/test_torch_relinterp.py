@@ -2,8 +2,8 @@
 against the JAX package's, which pairs join keys with pandas, on the CPU.
 
 * Frame for frame, in order: every census plan (tests/torch_census_cases.py)
-  and every in-code plan of chip_smoke.py, each built with each package's
-  own modules, gives the same column names, dtypes, display types and
+  and every in-code plan of tests/torch_plans.py, each built with each
+  package's own modules, gives the same column names, dtypes, display types and
   values in the same order, and the same null masks.  The census runs at
   its CPU scale: SF 0.002 for the fuzz families, the stores of the
   original tests for the others.
@@ -20,10 +20,10 @@ import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-import chip_smoke
 import mplan2vdl_tpu
 import mplan2vdl_tpu_torch
 import torch_census_cases as census
+import torch_plans
 from mplan2vdl_tpu.engine import datagen as jdatagen
 from mplan2vdl_tpu.oracle import relinterp as jrel
 from mplan2vdl_tpu_torch.engine import datagen as tdatagen
@@ -36,12 +36,12 @@ STORES = {"fuzz": (0.002, 1), "ordered": (0.002, 1), "null": (0.01, 7),
           "distinct": (0.02, 11), "tpch": (0.01, 1)}
 # the in-code plans' store (at SF 0.01 Q17's part filter keeps parts), and
 # a smaller one for the hot join, which both oracles join before they filter
-# (chip_smoke.CENSUS_SKIP): n^2 / 5 pairs
+# (torch_plans.CENSUS_SKIP): n^2 / 5 pairs
 PLAN_STORE = (0.01, 1)
 PLAN_STORES = {"PLAN_HOT_JOIN": (0.002, 1)}
-CODE_PLANS = sorted(k for k in vars(chip_smoke)
+CODE_PLANS = sorted(k for k in vars(torch_plans)
                     if k.startswith("PLAN_") and isinstance(
-                        getattr(chip_smoke, k), str))
+                        getattr(torch_plans, k), str))
 
 _stores = {}
 
@@ -84,7 +84,7 @@ def test_census_frames_equal_jax_oracle(family, name):
 @pytest.mark.parametrize("plan", CODE_PLANS)
 def test_code_plan_frames_equal_jax_oracle(plan):
     ts, tcfg, js, jcfg = _store_pair(*PLAN_STORES.get(plan, PLAN_STORE))
-    text = getattr(chip_smoke, plan)
+    text = getattr(torch_plans, plan)
     got = trel.run_oracle(ts, census.text_mplan(mplan2vdl_tpu_torch, text,
                                                 tcfg))
     want = jrel.run_oracle(js, census.text_mplan(mplan2vdl_tpu, text, jcfg))
@@ -97,8 +97,8 @@ def test_census_covers_every_family():
     assert [f for f, _ in names if f not in census.FAMILIES] == []
     assert {f for f, _ in names} == set(census.FAMILIES)
     assert len(names) == len(set(names)) == (
-        40 + 40 + 7 + 5 + 2 + 2 + len(chip_smoke.AUTO_PLANS)
-        - len(chip_smoke.CENSUS_SKIP))
+        40 + 40 + 7 + 5 + 2 + 2 + len(torch_plans.AUTO_PLANS)
+        - len(torch_plans.CENSUS_SKIP))
     ts, tcfg = _store_pair(*STORES["fuzz"])[:2]
     for family, name in names:  # every plan builds with the port
         assert census.build(mplan2vdl_tpu_torch, family, name, ts,

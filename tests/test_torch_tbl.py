@@ -14,7 +14,7 @@ import os
 import numpy as np
 import pytest
 
-import chip_smoke
+import torch_plans
 from mplan2vdl_tpu import cli as jcli
 from mplan2vdl_tpu.engine import datagen as jdatagen
 from mplan2vdl_tpu.engine import tblingest as jtbl
@@ -32,7 +32,7 @@ def dirs(tmp_path_factory):
     root = tmp_path_factory.mktemp("tbl")
     ttbl.to_tbl(tdatagen.generate(sf=SF, seed=SEED), str(root / "port"))
     jtbl.to_tbl(jdatagen.generate(sf=SF, seed=SEED), str(root / "jax"))
-    for name, text in chip_smoke.CLI_PLANS.items():
+    for name, text in torch_plans.CLI_PLANS.items():
         (root / f"{name}.mplan").write_text(text)
     return root
 
@@ -104,12 +104,12 @@ def test_run_tbl_matches_generated_store(dirs, capsys, plan):
     path = str(dirs / f"{plan}.mplan")
     tcli.main(["run", path, "--tbl", str(dirs / "port"), "--cpu",
                "--decode"])
-    head, rows = chip_smoke.csv_rows(capsys.readouterr().out)
+    head, rows = torch_plans.csv_rows(capsys.readouterr().out)
     tcli.main(["run", path, "--sf", str(SF), "--seed", str(SEED), "--cpu",
                "--decode"])
-    want_head, want = chip_smoke.csv_rows(capsys.readouterr().out)
+    want_head, want = torch_plans.csv_rows(capsys.readouterr().out)
     assert head == want_head and len(rows) > 3
     assert sorted(rows) == sorted(want)
     if plan == "q16":
-        assert chip_smoke.q16_sql_order(rows)
-        assert not chip_smoke.q16_sql_order(want)
+        assert torch_plans.q16_sql_order(rows)
+        assert not torch_plans.q16_sql_order(want)

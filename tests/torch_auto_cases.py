@@ -23,11 +23,11 @@ import random
 
 import numpy as np
 
-import chip_smoke
+import torch_plans
 
-# the in-code plans of chip_smoke phase 8 (chip_smoke.AUTO_PLANS) over this
-# store; TPC-H Q17 also over a store where its part filter keeps parts (at
-# CLI_SF it keeps none, and the plan's one fold has no group)
+# the in-code plans of chip_smoke.py's phase 8 (torch_plans.AUTO_PLANS)
+# over this store; TPC-H Q17 also over a store where its part filter keeps
+# parts (at CLI_SF it keeps none, and the plan's one fold has no group)
 CLI_SF, CLI_SEED = 0.002, 1
 Q17_SF = 0.01
 
@@ -341,7 +341,7 @@ def case_vexps(pkg, case: str, store, cfg):
                                                                    cfg)))
         return passes.engine_passes(vir.vexps_from_mplan(m, cfg)), None
     if case == "small_q13":
-        return plan_to_vexps(chip_smoke.PLAN_Q13, cfg), None
+        return plan_to_vexps(torch_plans.PLAN_Q13, cfg), None
     if case.startswith("small_join"):
         m = rand_join_plan(M, DDecimal, random.Random(1000 + int(case[10:])))
     elif case == "small_hot":
@@ -458,13 +458,13 @@ def cli_suite():
     cfg = st.make_catalog()
     cases = {f"cli_{name}": (lambda text: lambda m: _distributed(
         m, cfg, st, plan_to_vexps(text, cfg)))(text)
-        for name, text in chip_smoke.AUTO_PLANS.items()}
+        for name, text in torch_plans.AUTO_PLANS.items()}
 
     def q17(mesh):
         st17 = datagen.generate(sf=Q17_SF, seed=CLI_SEED)
         cfg17 = st17.make_catalog()
         return _distributed(mesh, cfg17, st17,
-                            plan_to_vexps(chip_smoke.PLAN_Q17, cfg17))
+                            plan_to_vexps(torch_plans.PLAN_Q17, cfg17))
 
     cases["q17_rows"] = q17
 
@@ -477,8 +477,8 @@ def cli_suite():
                 del os.environ["MPLAN2VDL_NO_PART_JOIN"]
         return run
 
-    cases["nopart_q13"] = no_part_join(chip_smoke.PLAN_Q13)
-    cases["nopart_self_join"] = no_part_join(chip_smoke.PLAN_SELF_JOIN)
+    cases["nopart_q13"] = no_part_join(torch_plans.PLAN_Q13)
+    cases["nopart_self_join"] = no_part_join(torch_plans.PLAN_SELF_JOIN)
     return cases
 
 

@@ -20,7 +20,7 @@ same draws.  The families:
   condition (``extra_condition_join``);
 * ``distinct``: tests/test_distinct.py's two count(DISTINCT) plan texts,
   held against a numpy distinct count (``numpy_distinct``);
-* ``tpch``: chip_smoke.py's in-code plans (``AUTO_PLANS`` but
+* ``tpch``: tests/torch_plans.py's in-code plans (``AUTO_PLANS`` but
   ``CENSUS_SKIP``: TPC-H Q1, Q3, Q4, Q5, Q6, Q9, Q13, Q16, Q17 and Q3's top
   10, a filter-project, two group-bys, a dense-domain join, two
   count(DISTINCT) plans, Q4 over all orders, a self-join and Q13 by
@@ -36,6 +36,8 @@ import importlib
 import random
 
 import numpy as np
+
+import torch_plans
 
 # ------------------------------------------------------ tests/test_fuzz.py
 LI = "lineitem"
@@ -385,12 +387,10 @@ DISTINCT = {"dense": (PLAN_DENSE, "l_linestatus"),
 
 
 def _code_plans():
-    """chip_smoke.py's in-code plans by name, but those the census leaves
-    out (``chip_smoke.CENSUS_SKIP``)."""
-    import chip_smoke
-
-    return {k: v for k, v in chip_smoke.AUTO_PLANS.items()
-            if k not in chip_smoke.CENSUS_SKIP}
+    """The in-code plans of tests/torch_plans.py by name, but those the
+    census leaves out (``torch_plans.CENSUS_SKIP``)."""
+    return {k: v for k, v in torch_plans.AUTO_PLANS.items()
+            if k not in torch_plans.CENSUS_SKIP}
 
 
 def text_mplan(pkg, text, cfg):

@@ -20,16 +20,17 @@ import time
 import numpy as np
 import torch
 
-import chip_smoke
+import torch_plans
 
 # seconds a world of ranks may take for a whole suite
 TIMEOUT_S = 240
 # datagen store of the DistQuery cases (as tests/test_parallel.py)
 STORE_SF, STORE_SEED = 0.005, 11
-# the DistQuery cases: chip_smoke's (the operator lambdas of
+# the DistQuery cases: torch_plans' (the operator lambdas of
 # tests/test_parallel.py)
-Q6_COLUMNS, Q1_COLUMNS = chip_smoke.DIST_Q6_COLUMNS, chip_smoke.DIST_Q1_COLUMNS
-q6_query, q1_query = chip_smoke.dist_q6_query, chip_smoke.dist_q1_query
+Q6_COLUMNS, Q1_COLUMNS = (torch_plans.DIST_Q6_COLUMNS,
+                          torch_plans.DIST_Q1_COLUMNS)
+q6_query, q1_query = torch_plans.dist_q6_query, torch_plans.dist_q1_query
 
 
 
