@@ -62,10 +62,10 @@ PROBE_TURNS, PROBE_REPS, PROBE_HOST_CALLS = 5, 200, 10_000
 # NVIDIA H100 SXM data sheet: 3.35 TB/s of HBM3 at the 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 
-# each CUDA kernel (csrc/<name>.cu): the TPU kernel it replaces (JAX
-# package, file:line), the module and counter of its launches (the probe
-# kernels' counted over the probe tools, the others over the queries), and
-# its CUDA functions as the profiler names them
+# each CUDA kernel (csrc/<name>.cu, or csrc/<source>.cu): the TPU kernel it
+# replaces (JAX package, file:line), the module and counter of its launches
+# (the probe kernels' counted over the probe tools, the others over the
+# queries), and its CUDA functions as the profiler names them
 KERNEL_SOURCE = "mplan2vdl_tpu_torch/engine/kernels/csrc/{}.cu"
 KERNELS = {
     "compact": dict(
@@ -98,6 +98,10 @@ KERNELS = {
     "exprfold": dict(
         replaces="none: XLA's loop fusion of a one-group fold's tree",
         counter=("exprfold", "launches"), functions=("expr_fold_kernel",)),
+    "group_ids": dict(
+        replaces="none: XLA's loop fusion of a fused family's key and mask",
+        source="exprfold", counter=("exprfold", "group_launches"),
+        functions=("group_ids_kernel",)),
 }
 
 Q1_MXU = "Q1 fused MXU (MPLAN2VDL_MXU_AGG=1)"
@@ -774,6 +778,7 @@ class Smoke:
         self.mxu_kernel(fam, cols, gid)
         self.radix_kernel()
         self.exprfold_kernel(m19)
+        self.group_ids_kernel()
 
     def mxu_kernel(self, fam, cols, gid):
         """The tensor-core aggregate on Q1's sum specs (the family's sums
@@ -1174,6 +1179,99 @@ class Smoke:
                          f"leaves, {len(program)} steps", ms, plain_ms,
                          lib_ms, _bound_ms(nbytes), timed_launches)
 
+    def group_ids_kernel(self):
+        """The group ids: Q1's call as the engine makes it with
+        MPLAN2VDL_FUSED_AGG=1 (its program, immediates and resident
+        lineitem columns), exact against the plain version and the library
+        expression over every row, over a ragged count of them and over
+        unaligned views; the random keys of
+        ``tests/torch_exprfold_cases.py`` (every leaf dtype, 64-bit values,
+        pivots below, inside and above the keys) at every lineitem row and
+        at a ragged count; one launch a call.  Then Q1's call timed beside
+        its plain version and the library yardstick
+        ``torch.where(shipdate <= k, ((rf << 1) | ls).clamp(0, 7), -1)``,
+        which the engine never calls."""
+        torch = self.torch
+        from mplan2vdl_tpu_torch import mplan as M
+        from mplan2vdl_tpu_torch import vir as V
+        from mplan2vdl_tpu_torch.engine import datagen, exprfold, lower
+        from mplan2vdl_tpu_torch.engine.kernels import exprfold as kx
+        from mplan2vdl_tpu_torch.oracle.tpch import day
+
+        import torch_exprfold_cases as cases
+
+        def check(what, leaves, program, imms, rmin, rcount):
+            before = kx.group_launches
+            got = kx.group_ids(leaves, program, imms, rmin, rcount)
+            if kx.group_launches != before + 1:
+                raise AssertionError(f"group_ids {what}: "
+                                     f"{kx.group_launches - before} launches")
+            want = kx.group_ids_plain(leaves, program, imms, rmin, rcount)
+            self.equal(f"group_ids {what}", got, want)
+            return got
+
+        calls = []
+
+        def record(ids, *a):
+            calls.append(a)
+            return ids(*a)
+
+        with engine_seam(env={"MPLAN2VDL_FUSED_AGG": "1"}):
+            cq = lower.CompiledQuery(self.cfg, lower.plan_to_vexps(
+                plans.PLAN_Q1, self.cfg), self.st, device=self.dev)
+            with engine_seam(wrap={"group_ids": record}):
+                cq()
+        if cq.key_programs != 1 or len(calls) != 1:
+            raise AssertionError(f"Q1 fused: {cq.key_programs} group-id "
+                                 f"passes, {len(calls)} calls, not one")
+        (plan,) = cq.key_plans.values()
+        leaves, program, imms, rmin, rcount = calls[0]
+        n = leaves[0].shape[0]
+        col = dict(zip((v.vx.name[1] for v in plan.leaves), leaves))
+        ship, rf, ls = (col["l_shipdate"], col["l_returnflag"],
+                        col["l_linestatus"])
+        got = check(f"Q1 {len(leaves)} int32[{n}]", *calls[0])
+        cut = day(1998, 9, 2)
+
+        def library():
+            return torch.where(ship <= cut, ((rf << 1) | ls).clamp(0, 7), -1)
+
+        if not torch.equal(got, library().to(torch.int32)):
+            raise AssertionError("group_ids Q1: the ids differ from the "
+                                 "library expression's")
+        ragged = 1_000_003
+        check(f"Q1 n={ragged}", [t[:ragged] for t in leaves], program, imms,
+              rmin, rcount)
+        check("Q1 unaligned views", [t[3:] for t in leaves], program, imms,
+              rmin, rcount)
+        del cq, got
+
+        st = datagen.generate(sf=0.001, seed=5)
+        cases.add_leaves(st, 5)
+        widths = set()
+        for i, (name, p) in enumerate(cases.key_plans(
+                st.make_catalog(), V, M, exprfold.plan_group_ids)):
+            for rows in (n, ragged):
+                data = cases.leaf_data(torch, p, rows, self.dev,
+                                       self.args.seed + 100 + i)
+                check(f"{name} {len(p.program)} steps n={rows}", data,
+                      p.program, cases.immediates(p), p.rmin, p.rcount)
+                widths.add(any(t.dtype == torch.int64 for t in data))
+                del data
+        if widths != {False, True}:
+            raise AssertionError("group_ids: the random keys read int64 "
+                                 f"leaves in none or all ({widths})")
+
+        args = (leaves, program, imms, rmin, rcount)
+        ms, timed_launches = self.kernel_ms("group_ids",
+                                            lambda: kx.group_ids(*args))
+        plain_ms = self.cuda_ms(lambda: kx.group_ids_plain(*args), 3)
+        lib_ms = self.cuda_ms(library, REPS)
+        nbytes = sum(t.numel() * t.element_size() for t in leaves) + 4 * n
+        self.kernel_time("group_ids", f"Q1's ids: {len(leaves)} int32[{n}] "
+                         f"leaves, {len(program)} steps, int32[{n}] ids", ms,
+                         plain_ms, lib_ms, _bound_ms(nbytes), timed_launches)
+
     def kernel_time(self, name, shape, ms, plain_ms, lib_ms, bound_ms,
                     launches, **extra):
         rec = {"kernel": name, "shape": shape, "ms": ms,
@@ -1271,14 +1369,17 @@ class Smoke:
         from mplan2vdl_tpu_torch.engine.lower import fused_agg_on
 
         if fused_agg_on(self.st, [("lineitem", "l_quantity")]):
-            q1 = [("Q1 fused (auto gate)", "q1", None, "compact multiagg")]
+            q1 = [("Q1 fused (auto gate)", "q1", None,
+                   "compact multiagg group_ids")]
         else:
             q1 = [("Q1 (auto gate: unfused)", "q1", None, "compact"),
-                  ("Q1 fused (forced)", "q1", "1", "compact multiagg")]
+                  ("Q1 fused (forced)", "q1", "1",
+                   "compact multiagg group_ids")]
         joins, ordered = "compact gather small_gather", " ".join(
             ORDERED_KERNELS)
         runs = [("Q6", "q6", None, "compact exprfold"), *q1,
-                (Q1_MXU, "q1", "1", "compact multiagg_mxu multiagg"),
+                (Q1_MXU, "q1", "1",
+                 "compact multiagg_mxu multiagg group_ids"),
                 ("Q1 unfused (MPLAN2VDL_FUSED_AGG=0)", "q1", "0", "compact"),
                 ("filter-project", "filter_project", None, ""),
                 ("Q3", "q3", None, "compact gather scatter"),
@@ -1376,11 +1477,14 @@ class Smoke:
             raise AssertionError(f"Q4: repeated-position scatters "
                                  f"{repeats}, not one with repeats")
         # exact counts: a fused family is one launch (on the tensor cores
-        # only under MPLAN2VDL_MXU_AGG); Q6's sum is computed in one pass,
-        # and Q1's folds take the fused family or the grouped path
+        # only under MPLAN2VDL_MXU_AGG) and its group ids one more; Q6's
+        # sum is computed in one pass, and Q1's folds take the fused family
+        # or the grouped path
+        fused = int("multiagg" in must)
         exact = {"multiagg_mxu": int(name == Q1_MXU),
-                 **({"multiagg": 1} if "multiagg" in must else {}),
-                 **{"q6": {"exprfold": 1}, "q1": {"exprfold": 0}}.get(key, {})}
+                 **({"multiagg": 1} if fused else {}),
+                 **{"q6": {"exprfold": 1, "group_ids": 0},
+                    "q1": {"exprfold": 0, "group_ids": fused}}.get(key, {})}
         idle = [k for k in must if launches[k] == 0]
         wrong = {k: launches[k] for k, n in exact.items() if launches[k] != n}
         if idle or wrong:
@@ -2137,6 +2241,18 @@ class Smoke:
         futures = {c: pool.submit(census.oracle_columns, *c)
                    for c in cases if c[0] != "null"}
         tp = np.asarray(st.columns[("orders", "o_totalprice")])
+        from mplan2vdl_tpu_torch.engine.kernels import exprfold as kx
+
+        def held(line, name):
+            """``engine_seam``'s wrapper holding each group-id pass of plan
+            ``name`` in pass ``line`` to the plain version."""
+            def ids(fn, *a):
+                got = fn(*a)
+                self.equal(f"group_ids census {line} {name}", got,
+                           kx.group_ids_plain(*a))
+                return got
+            return {"group_ids": ids}
+
         reset_launches(counters)
         try:
             # every run on the card first: (family line, name) -> columns
@@ -2151,7 +2267,8 @@ class Smoke:
                     before = read_launches(counters)
                     t0 = time.perf_counter()
                     with engine_seam(env={"MPLAN2VDL_FUSED_AGG": fused,
-                                          "MPLAN2VDL_MXU_AGG": mxu}):
+                                          "MPLAN2VDL_MXU_AGG": mxu},
+                                     wrap=held(line, name)):
                         cq = CompiledQuery(cfg, passes.engine_passes(
                             vir.vexps_from_mplan(plan, cfg)), st,
                             device=self.dev)
@@ -2331,7 +2448,8 @@ class Smoke:
         for name, meta in KERNELS.items():
             t = self.timed[name]
             out.append({"name": name, "route": "cuda",
-                        "source": KERNEL_SOURCE.format(name),
+                        "source": KERNEL_SOURCE.format(
+                            meta.get("source", name)),
                         "replaces": meta["replaces"],
                         "launches": launches[name],
                         "max_abs_err": max(

@@ -1,4 +1,5 @@
-"""Which folds the expression-fold kernel computes, and their programs.
+"""Which folds and group ids the expression-fold kernels compute, and their
+programs.
 
 A ``Fold`` of ``FSum``, ``FMin`` or ``FMax`` over a constant group key (one
 group: Q6's sum) that no fused family takes can be computed in one pass over
@@ -7,6 +8,13 @@ each such fold's two trees into one postfix program for
 ``kernels/exprfold.py`` (the mask first, then the payload), once per
 compiled query; ``Compiler._eval_fold`` runs it when the fold's values allow
 (``Compiler._eval_expr_fold``) and takes the node-by-node path otherwise.
+
+A fused family (``engine/fuse.py``) whose group key is a ``Partition``
+against a ``RangeC`` of step 1 (Q1's) gets its group ids the same way:
+``plan_keys`` turns its mask and the ``Partition``'s data into one program
+(the mask first, then the key), and the pivots become the kernel's bounds;
+``Compiler._eval_fused`` runs it when the values allow
+(``Compiler._fused_ids``) and evaluates the nodes otherwise.
 
 The trees' interior nodes are ``Binop``s of OPS (a shift only by a
 constant).  A constant (a ``RangeV`` or ``RangeC`` of step 0, or a ``Binop``
@@ -46,22 +54,37 @@ FOLDS = {V.FSUM: "sum", V.FMIN: "min", V.FMAX: "max"}
 
 
 @dataclass(frozen=True)
-class ExprFold:
-    """One fold's program: ``leaves`` (the columns, LEAF + k reads
-    ``leaves[k]``), ``program``, ``consts`` (per step, the constant node
-    whose value is its immediate, or None), ``imms`` (per step, the
-    immediate of a step with no constant node: 1 where a fold without a
-    mask keeps every row, else 0), ``shifts`` (per step, whether its
-    immediate is a shift amount), ``foldop`` (of FOLD_OPS) and ``fold32``
-    (the fold's dtype is int32)."""
+class Program:
+    """A program over leaf columns that leaves a mask and then a value:
+    ``leaves`` (the columns, LEAF + k reads ``leaves[k]``), ``program``,
+    ``consts`` (per step, the constant node whose value is its immediate,
+    or None), ``imms`` (per step, the immediate of a step with no constant
+    node: 1 where a missing mask keeps every row, else 0) and ``shifts``
+    (per step, whether its immediate is a shift amount)."""
 
     leaves: Tuple[V.Vexp, ...]
     program: Tuple[Step, ...]
     consts: Tuple[Optional[V.Vexp], ...]
     imms: Tuple[int, ...]
     shifts: Tuple[bool, ...]
+
+
+@dataclass(frozen=True)
+class ExprFold(Program):
+    """One fold's program (its value the payload): ``foldop`` (of
+    FOLD_OPS) and ``fold32`` (the fold's dtype is int32)."""
+
     foldop: str
     fold32: bool
+
+
+@dataclass(frozen=True)
+class GroupIds(Program):
+    """A fused family's group-id program (its value the ``Partition``'s
+    data): the pivots ``rmin``, ``rmin + 1``, ... (``rcount`` of them)."""
+
+    rmin: int
+    rcount: int
 
 
 def is_constant(v: V.Vexp) -> bool:
@@ -217,6 +240,27 @@ class _Emitter:
         self.step(RR + RR_OPS.index(op), -1, narrow)
 
 
+def _program(mask: Optional[V.Vexp], value: V.Vexp) -> Optional[dict]:
+    """The fields of a ``Program`` that leaves ``mask`` (1 where None) and
+    then ``value``, or None where it is too large or reads no column (the
+    node-by-node path reads none either)."""
+    e = _Emitter()
+    try:
+        if mask is None:  # every row is kept
+            e.step(IMM, 1, imm=1)
+        else:
+            e.emit(mask)
+        e.emit(value)
+    except _TooLarge:
+        return None
+    if not e.leaf_nodes:
+        return None
+    check_program(e.program, len(e.leaf_nodes))
+    return dict(leaves=tuple(e.leaf_nodes), program=tuple(e.program),
+                consts=tuple(e.consts), imms=tuple(e.imms),
+                shifts=tuple(e.shifts))
+
+
 def plan_fold(v: V.Vexp) -> Optional[ExprFold]:
     """The program of fold ``v`` where the kernel can compute it (see the
     module note), else None."""
@@ -227,23 +271,40 @@ def plan_fold(v: V.Vexp) -> Optional[ExprFold]:
     gmin, gmax = vx.fgroups.info.bounds
     if gmin < 0 or gmax + 1 > segred.SMALL_DOMAIN:
         return None
-    e = _Emitter()
-    try:
-        if vx.fmask is None:  # every row is kept
-            e.step(IMM, 1, imm=1)
-        else:
-            e.emit(vx.fmask)
-        e.emit(vx.fdata)
-    except _TooLarge:
+    p = _program(vx.fmask, vx.fdata)
+    if p is None:
         return None
-    if not e.leaf_nodes:
-        return None  # no column to read: the node-by-node path reads none
-    check_program(e.program, len(e.leaf_nodes))
-    return ExprFold(leaves=tuple(e.leaf_nodes), program=tuple(e.program),
-                    consts=tuple(e.consts), imms=tuple(e.imms),
-                    shifts=tuple(e.shifts),
-                    foldop=FOLDS[vx.foldop],
+    return ExprFold(**p, foldop=FOLDS[vx.foldop],
                     fold32=torch_dtype_for(v.info) == torch.int32)
+
+
+def plan_group_ids(fgroups: V.Vexp,
+                   fmask: Optional[V.Vexp]) -> Optional[GroupIds]:
+    """The group-id program of a fused family with group key ``fgroups``
+    and mask ``fmask``, where the key is a ``Partition`` against a
+    ``RangeC`` of step 1 whose data is not a constant; else None."""
+    vx = fgroups.vx
+    if not isinstance(vx, V.Partition) or is_constant(vx.pdata):
+        return None
+    piv = vx.pivots.vx
+    if not isinstance(piv, V.RangeC) or piv.rstep != 1 \
+            or not 1 <= piv.rcount <= 2**31:
+        return None
+    p = _program(fmask, vx.pdata)
+    if p is None:
+        return None
+    return GroupIds(**p, rmin=piv.rmin, rcount=piv.rcount)
+
+
+def plan_keys(families: list) -> Dict[int, GroupIds]:
+    """The group-id program of each fused family (``fuse.Family``) that
+    has one, by the family's index."""
+    out = {}
+    for i, fam in enumerate(families):
+        p = plan_group_ids(fam.fgroups, fam.fmask)
+        if p is not None:
+            out[i] = p
+    return out
 
 
 def plan(vexps: List[V.Vexp], fold_map: dict) -> Dict[int, ExprFold]:

@@ -55,6 +55,7 @@ _SIGNATURES = {
     "m2v_compact_tile": ([], _I),
     "m2v_expr_fold": ([_P, _P, _I, _L, _P, _P, _I, _I, _I, _P, _P], _I),
     "m2v_gather": ([_P, _P, _P, _I, _P, _I, _L, _L, _L, _P, _P], _I),
+    "m2v_group_ids": ([_P, _P, _I, _L, _P, _P, _I, _L, _L, _P, _P], _I),
     "m2v_gather_blocks_per_sm": ([_I, _I, _I], _I),
     "m2v_gather_max_sources": ([], _I),
     "m2v_multiagg": ([_P, _I, _P, _L, _P, _I, _I, _I, _I, _P, _P], _I),

@@ -1,16 +1,23 @@
 // Expression fold: a one-group fold's mask and payload trees, evaluated in
 // registers in one pass over their leaf columns, and reduced on the card.
+// Group ids: a fused family's mask and group-key trees, evaluated the same
+// way, and written out as each row's int32 group id.
 //
 // Replaces no TPU kernel.  On the TPU, XLA fused a fold over a constant key
 // (Q6: five compares against constants, four LogAnds, a Mul, a masked sum)
-// into one loop over the columns.  Evaluated node by node with torch ops,
-// the same tree is about fifteen full-length passes and the casts between
-// them.  The engine's plan (engine/exprfold.py) turns the two trees into
-// one postfix program; this kernel runs it.
+// into one loop over the columns, and likewise a fused aggregate's group
+// ids (Q1: ``(l_returnflag << 1) | l_linestatus`` clamped to its eight
+// pivots by ``Partition``, -1 where ``l_shipdate <= k`` fails).  Evaluated
+// node by node with torch ops, the same trees are about fifteen (Q6) and
+// nine (Q1) full-length passes and the casts between them.  The engine's
+// plan (engine/exprfold.py) turns the two trees into one postfix program;
+// these kernels run it.
 //
-// Bound on an H100: bytes.  The function reads each leaf column once (Q6:
-// four int32 columns of 60,003,426 rows, 0.96 GB, 0.287 ms at 3.35 TB/s)
-// and writes three int64 words.
+// Bound on an H100: bytes.  The fold reads each leaf column once (Q6: four
+// int32 columns of 60,003,426 rows, 0.96 GB, 0.287 ms at 3.35 TB/s) and
+// writes three int64 words.  The group ids read each leaf column once and
+// write one int32 a row (Q1: three int32 columns and the ids, 0.96 GB,
+// 0.287 ms).
 //
 // Design:
 //   * The program is a stack machine run by every thread over its own rows,
@@ -29,23 +36,30 @@
 //   * The dispatch costs about as much as an op, so the plan fuses the
 //     common pairs into one step: a leaf against a constant (push
 //     op(leaf, k)), a LogAnd with such a compare (top && cmp(leaf, k)), an
-//     op with a leaf operand (op(top, leaf)).  Q6 is 7 steps.
+//     op with a leaf operand (op(top, leaf)).  Q6 is 7 steps, Q1's ids 3.
 //   * Values are 32-bit where every leaf, immediate and step result of the
-//     program fits (Q6), else 64-bit.  An arithmetic step's result is
+//     program fits (Q6, Q1), else 64-bit.  An arithmetic step's result is
 //     narrowed to its node's dtype (int32 or int64), as the engine's
 //     ``.to(dt)`` does; compares and logical ops give 0 or 1.  The payload
 //     is narrowed to the fold's dtype and reduced in int64.
-//   * The kernel is a template on the value width, the leaf count (2, 4 or
-//     8) and the stack size (3, 5 or 8), so that a small program holds few
-//     registers.
-//   * Each thread reduces its rows in int64 (sums wrap as unsigned 64-bit:
-//     exact whatever the order); then warp shuffles, the block, and one
-//     atomic per block into out[0] (sum or extreme) and out[1] (count),
+//   * The kernels are templates on the value width, the leaf count and the
+//     stack size, so that a small program holds few registers: the fold
+//     kernel at 2, 4 or 8 leaves and 3, 5 or 8 slots (18 kernels), the
+//     group-id kernel at 4 leaves and 3 slots (Q1's ids and any key as
+//     small) or 8 and 8 in 32 bits, and 8 and 8 in 64: 3 kernels, since
+//     each instance compiles the whole step switch anew.
+//   * Each fold thread reduces its rows in int64 (sums wrap as unsigned
+//     64-bit: exact whatever the order); then warp shuffles, the block, and
+//     one atomic per block into out[0] (sum or extreme) and out[1] (count),
 //     which the entry point zeroes.  An extreme travels as an unsigned key
 //     that orders as the value does (min: reversed), so a zero word is the
 //     identity and atomicMax on unsigned 64-bit merges the blocks; the last
 //     block to finish (a ticket in out[2]) turns the key back into the
 //     value.
+//   * Each group-id thread turns its 4 (mask, key) pairs into ids in 64-bit
+//     arithmetic (the key less the lowest pivot, clamped to the pivots, as
+//     the engine's int64 ``Partition`` computes it) and writes them with
+//     one 16-byte store; nothing is reduced.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -378,6 +392,42 @@ expr_fold_kernel(const __grid_constant__ FoldArgs a, long long n,
     out[0] = (u64)from_key(op, atomicAdd(out, 0ull));
 }
 
+// The program leaves the mask (slot 1) under the key (top): a row's id is
+// clamp(key - rmin, 0, hi), computed in 64 bits and wrapping as the
+// engine's int64 subtraction does, or -1 where the mask is zero.  Each
+// thread writes its 4 ids with one 16-byte store (out is 16-byte aligned).
+template <typename T, int NL, int DM>
+__global__ void __launch_bounds__(kThreads)
+group_ids_kernel(const __grid_constant__ FoldArgs a, long long n,
+                 long long rmin, long long hi, int* __restrict__ out) {
+  const long long nq = (n + kRows - 1) / kRows;
+  for (long long q = (long long)blockIdx.x * kThreads + threadIdx.x; q < nq;
+       q += (long long)gridDim.x * kThreads) {
+    T lv[NL][kRows];
+#pragma unroll
+    for (int j = 0; j < NL; ++j) {
+      if (j >= a.nleaf) break;
+      load_quad<T>(a.leaf[j], a.dtype[j], q, n, lv[j]);
+    }
+    T st[DM][kRows];
+    for (int s = 0; s < a.nsteps; ++s)
+      run_step<DM, NL, T>(a.step[s], (T)a.imm[s], st, lv);
+    int id[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const long long k = (long long)((u64)(long long)st[0][i] - (u64)rmin);
+      id[i] = st[1][i] != 0 ? (int)(k < 0 ? 0 : (k > hi ? hi : k)) : -1;
+    }
+    if ((q + 1) * kRows <= n) {
+      reinterpret_cast<int4*>(out)[q] = make_int4(id[0], id[1], id[2], id[3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+        if (q * kRows + i < n) out[q * kRows + i] = id[i];
+    }
+  }
+}
+
 // The kernels: values of 32 bits (W = 0) or 64, NL leaves and a stack of
 // DM slots, at index 9 * W + 3 * leaf_bucket(NL) + depth_bucket(DM).
 using KernelFn = void (*)(FoldArgs, long long, u64*);
@@ -396,35 +446,34 @@ KernelFn kernel_at(int which) {
   return which < 9 ? kernel_of<int>(which) : kernel_of<long long>(which - 9);
 }
 
+// The group-id kernels: 32-bit values with at most 4 leaves and 3 slots,
+// 32-bit values, and 64-bit values.
+using GroupFn = void (*)(FoldArgs, long long, long long, long long, int*);
+const GroupFn kGroupFns[3] = {group_ids_kernel<int, 4, 3>,
+                              group_ids_kernel<int, 8, 8>,
+                              group_ids_kernel<long long, 8, 8>};
+
 inline int leaf_bucket(int x) { return x <= 2 ? 0 : (x <= 4 ? 1 : 2); }
 inline int depth_bucket(int x) { return x <= 3 ? 0 : (x <= 5 ? 1 : 2); }
 
-// resident blocks per SM of each kernel and device (0: not asked yet)
+// resident blocks per SM of each kernel and device (0: not asked yet):
+// the fold kernels at 0..17, the group-id kernels at 18..20
 constexpr int kMaxDevices = 64;
-int g_per_sm[kMaxDevices][18];
+constexpr int kGroupKernels = 18;
+int g_per_sm[kMaxDevices][kGroupKernels + 3];
 int g_sms[kMaxDevices];
 
-}  // namespace
-
-extern "C" {
-
-// leaves: host array of nleaf device pointers, each 16-byte aligned, to n
-// rows of dtypes[j] (exprfold.DTYPES).  code/imm: the program's nsteps
-// steps (kind | depth << 10 | narrow << 16) and immediates.  fold_op:
-// exprfold.FOLD_OPS; fold32: the payload is narrowed to int32.  out: int64
-// [3] on the device, which this call zeroes; out[0] the sum or extreme
-// (the identity where no row is kept), out[1] the count of kept rows.
-int m2v_expr_fold(const void* const* leaves, const int* dtypes, int nleaf,
-                  long long n, const int* code, const long long* imm,
-                  int nsteps, int fold_op, int fold32, void* out,
-                  void* stream) {
-  if (nleaf < 1 || nleaf > kMaxLeaves || nsteps < 1 ||
-      nsteps > kMaxSteps || n < 0 || fold_op < fSum || fold_op > fMax ||
-      out == nullptr)
+// Checks an entry point's leaves and program and fills ``a``'s leaves and
+// steps: every leaf 16-byte aligned and of a dtype of exprfold.DTYPES,
+// every step at the depth the stack has, the program leaving two values.
+// ``w32``: 32-bit values do (every leaf, immediate and step result fits);
+// ``most``: the deepest stack.  0 or the error to return.
+int parse_program(const void* const* leaves, const int* dtypes, int nleaf,
+                  const int* code, const long long* imm, int nsteps,
+                  FoldArgs& a, bool& w32, int& most) {
+  if (nleaf < 1 || nleaf > kMaxLeaves || nsteps < 1 || nsteps > kMaxSteps)
     return (int)cudaErrorInvalidValue;
-  FoldArgs a = {};
-  // 32-bit values do where every leaf, immediate and step result fits
-  bool w32 = true;
+  w32 = true;
   for (int j = 0; j < nleaf; ++j) {
     if (dtypes[j] < dBool || dtypes[j] > dI64 ||
         reinterpret_cast<uintptr_t>(leaves[j]) % 16 != 0)
@@ -434,7 +483,8 @@ int m2v_expr_fold(const void* const* leaves, const int* dtypes, int nleaf,
     w32 &= dtypes[j] != dI64;
   }
   // every step at the depth the stack has; the program leaves two values
-  int depth = 0, most = 0;
+  int depth = 0;
+  most = 0;
   for (int s = 0; s < nsteps; ++s) {
     const int kind = code[s] & 0x3ff, d = (code[s] >> 10) & 0x3f;
     const int narrow = code[s] >> 16;
@@ -481,6 +531,57 @@ int m2v_expr_fold(const void* const* leaves, const int* dtypes, int nleaf,
   if (depth != 2) return (int)cudaErrorInvalidValue;
   a.nleaf = nleaf;
   a.nsteps = nsteps;
+  return 0;
+}
+
+// The grid of kernel ``fn`` (slot ``slot`` of g_per_sm) over n rows: one
+// quad a thread, at most one wave of kBlocksPerSm blocks an SM (fewer
+// where fewer fit), at least one block.
+cudaError_t grid_of(const void* fn, int slot, long long n, int& blocks) {
+  int dev = 0;
+  cudaError_t e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (g_per_sm[dev][slot] == 0) {
+    int sms = 0, per_sm = 0;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+      return e;
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, fn, kThreads, 0)) != cudaSuccess)
+      return e;
+    g_sms[dev] = sms;
+    g_per_sm[dev][slot] =
+        per_sm < 1 ? 1 : (per_sm < kBlocksPerSm ? per_sm : kBlocksPerSm);
+  }
+  const long long want = (n + kThreads * kRows - 1) / (kThreads * kRows);
+  const long long wave = (long long)g_sms[dev] * g_per_sm[dev][slot];
+  blocks = (int)(want < 1 ? 1 : (want < wave ? want : wave));
+  return cudaSuccess;
+}
+
+}  // namespace
+
+extern "C" {
+
+// leaves: host array of nleaf device pointers, each 16-byte aligned, to n
+// rows of dtypes[j] (exprfold.DTYPES).  code/imm: the program's nsteps
+// steps (kind | depth << 10 | narrow << 16) and immediates.  fold_op:
+// exprfold.FOLD_OPS; fold32: the payload is narrowed to int32.  out: int64
+// [3] on the device, which this call zeroes; out[0] the sum or extreme
+// (the identity where no row is kept), out[1] the count of kept rows.
+int m2v_expr_fold(const void* const* leaves, const int* dtypes, int nleaf,
+                  long long n, const int* code, const long long* imm,
+                  int nsteps, int fold_op, int fold32, void* out,
+                  void* stream) {
+  if (n < 0 || fold_op < fSum || fold_op > fMax || out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  FoldArgs a = {};
+  bool w32 = true;
+  int most = 0;
+  int rc = parse_program(leaves, dtypes, nleaf, code, imm, nsteps, a, w32,
+                         most);
+  if (rc != 0) return rc;
   a.fold_op = fold_op;
   a.fold32 = fold32 != 0;
 
@@ -490,25 +591,38 @@ int m2v_expr_fold(const void* const* leaves, const int* dtypes, int nleaf,
   const int which =
       (w32 ? 0 : 9) + leaf_bucket(nleaf) * 3 + depth_bucket(most);
   const KernelFn fn = kernel_at(which);
-  int dev = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (g_per_sm[dev][which] == 0) {
-    int sms = 0, per_sm = 0;
-    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-      return (int)e;
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, fn, kThreads, 0)) != cudaSuccess)
-      return (int)e;
-    g_sms[dev] = sms;
-    g_per_sm[dev][which] =
-        per_sm < 1 ? 1 : (per_sm < kBlocksPerSm ? per_sm : kBlocksPerSm);
-  }
-  const long long want = (n + kThreads * kRows - 1) / (kThreads * kRows);
-  const long long wave = (long long)g_sms[dev] * g_per_sm[dev][which];
-  const int blocks = (int)(want < 1 ? 1 : (want < wave ? want : wave));
+  int blocks = 0;
+  if ((e = grid_of((const void*)fn, which, n, blocks)) != cudaSuccess)
+    return (int)e;
   fn<<<blocks, kThreads, 0, st>>>(a, n, static_cast<u64*>(out));
+  return (int)cudaGetLastError();
+}
+
+// leaves, dtypes, code, imm as m2v_expr_fold takes them; the program leaves
+// the mask, then the group key.  out: int32 [n] on the device, 16-byte
+// aligned: out[i] = clamp(key - rmin, 0, rcount - 1) where row i's mask is
+// nonzero, else -1.
+int m2v_group_ids(const void* const* leaves, const int* dtypes, int nleaf,
+                  long long n, const int* code, const long long* imm,
+                  int nsteps, long long rmin, long long rcount, void* out,
+                  void* stream) {
+  if (n < 0 || rcount < 1 || rcount > (1ll << 31) ||
+      (out == nullptr && n > 0) ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  FoldArgs a = {};
+  bool w32 = true;
+  int most = 0;
+  int rc = parse_program(leaves, dtypes, nleaf, code, imm, nsteps, a, w32,
+                         most);
+  if (rc != 0) return rc;
+  const int which = !w32 ? 2 : (nleaf <= 4 && most <= 3 ? 0 : 1);
+  const GroupFn fn = kGroupFns[which];
+  int blocks = 0;
+  cudaError_t e = grid_of((const void*)fn, kGroupKernels + which, n, blocks);
+  if (e != cudaSuccess) return (int)e;
+  fn<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, n, rmin, rcount - 1, static_cast<int*>(out));
   return (int)cudaGetLastError();
 }
 

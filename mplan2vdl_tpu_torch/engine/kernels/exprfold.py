@@ -1,23 +1,28 @@
 """Expression fold: a one-group fold's mask and payload, computed from their
-leaf columns in one pass.
+leaf columns in one pass; and a fused family's group ids, the same way.
 
 The engine plans such a fold once per compiled query (``engine/exprfold.py``):
 its mask tree and its payload tree become one postfix ``program`` of
 ``Step``s over the fold's leaf columns, which leaves the mask and then the
 payload on a stack.  ``expr_fold`` runs it over every row and returns the
 fold's value over the rows whose mask is nonzero, with their count.
+``group_ids`` runs a program that leaves a fused family's mask and group
+key instead, and writes each row's int32 group id: the key less the
+``Partition``'s lowest pivot, clamped to its pivots, or -1 where the mask
+is zero.
 
-On CUDA tensors it launches the hand-written kernel in ``csrc/exprfold.cu``
+On CUDA tensors both launch the hand-written kernels in ``csrc/exprfold.cu``
 (one pass, the trees evaluated in registers; see the note there); on CPU
-tensors it runs ``expr_fold_plain``, the same program as torch ops.  It
-replaces no TPU kernel: XLA fused this tree on the TPU.
+tensors they run ``expr_fold_plain`` and ``group_ids_plain``, the same
+program as torch ops.  They replace no TPU kernel: XLA fused these trees on
+the TPU.
 """
 
 from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -48,8 +53,10 @@ FOLD_OPS = ("sum", "min", "max")
 DTYPES = {torch.bool: 0, torch.int8: 1, torch.int16: 2, torch.int32: 3,
           torch.int64: 4}
 
-# kernel launches made by expr_fold (callers reset it to count a run)
+# kernel launches made by expr_fold and by group_ids (callers reset them
+# to count a run)
 launches = 0
+group_launches = 0
 
 
 @dataclass(frozen=True)
@@ -98,7 +105,8 @@ MOVES = {"leaf": (0, 1), "imm": (0, 1), "lri": (0, 1), "rr": (2, -1),
 
 def check_program(program: Sequence[Step], n_leaves: int) -> int:
     """The program's deepest stack; raises unless every step finds the
-    depth it names and the program leaves two values (mask, payload)."""
+    depth it names and the program leaves two values (mask, then payload
+    or group key)."""
     depth = most = 0
     for s in program:
         form, _, leaf = decode(s.kind)
@@ -147,11 +155,10 @@ def _apply(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out.to(torch.int64)
 
 
-def expr_fold_plain(leaves: Sequence[torch.Tensor], program: Sequence[Step],
-                    imms: Sequence[int], foldop: str,
-                    fold32: bool) -> torch.Tensor:
-    """Plain PyTorch version: the program over whole int64 columns, then
-    the fold over the rows whose mask is nonzero."""
+def run_plain(leaves: Sequence[torch.Tensor], program: Sequence[Step],
+              imms: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The program over whole int64 columns: the two values it leaves
+    (mask, then payload or key), int64, as csrc/exprfold.cu computes them."""
     check_program(program, len(leaves))
     n = leaves[0].shape[0]
     cols = [t.to(torch.int64) for t in leaves]
@@ -176,7 +183,16 @@ def expr_fold_plain(leaves: Sequence[torch.Tensor], program: Sequence[Step],
         elif s.narrow and op not in BOOL_OPS:
             v = v.to(torch.int32).to(torch.int64)
         stack.append(v)
-    mask, pay = stack
+    mask, top = stack
+    return mask, top
+
+
+def expr_fold_plain(leaves: Sequence[torch.Tensor], program: Sequence[Step],
+                    imms: Sequence[int], foldop: str,
+                    fold32: bool) -> torch.Tensor:
+    """Plain PyTorch version: the program over whole int64 columns, then
+    the fold over the rows whose mask is nonzero."""
+    mask, pay = run_plain(leaves, program, imms)
     if fold32:
         pay = pay.to(torch.int32).to(torch.int64)
     ok = mask != 0
@@ -191,16 +207,20 @@ def expr_fold_plain(leaves: Sequence[torch.Tensor], program: Sequence[Step],
     return torch.stack([val, ok.sum()])
 
 
-@tracing.kernel
-def expr_fold(leaves: Sequence[torch.Tensor], program: Sequence[Step],
-              imms: Sequence[int], foldop: str, fold32: bool) -> torch.Tensor:
-    """int64 [2] on the leaves' device: the fold (``foldop``, one of
-    FOLD_OPS) of the payload over the rows whose mask is nonzero (the
-    identity where there is none: 0, the int64 maximum for min, its minimum
-    for max), and their count.  ``leaves``: 1-D columns of one length in
-    DTYPES; ``imms``: one int64 immediate per step (0 where the step takes
-    none); ``fold32``: the payload is narrowed to int32."""
-    global launches
+def group_ids_plain(leaves: Sequence[torch.Tensor], program: Sequence[Step],
+                    imms: Sequence[int], rmin: int,
+                    rcount: int) -> torch.Tensor:
+    """Plain PyTorch version: the program over whole int64 columns, then
+    ``clamp(key - rmin, 0, rcount - 1)`` (int64, wrapping) where the mask
+    is nonzero and -1 elsewhere, as int32."""
+    mask, key = run_plain(leaves, program, imms)
+    ids = torch.clamp(key - rmin, 0, rcount - 1)
+    return torch.where(mask != 0, ids, -1).to(torch.int32)
+
+
+def _columns(leaves: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """``leaves`` as a list, checked: 1 to MAX_LEAVES 1-D columns of one
+    length and device, each of a dtype in DTYPES."""
     leaves = list(leaves)
     if not 1 <= len(leaves) <= MAX_LEAVES:
         raise ValueError(f"{len(leaves)} leaves, at most {MAX_LEAVES}")
@@ -212,25 +232,72 @@ def expr_fold(leaves: Sequence[torch.Tensor], program: Sequence[Step],
                             "one length")
         if t.device != dev:
             raise ValueError("leaves on different devices")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return leaves
+
+
+def _ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernels load it: contiguous, 16-byte aligned (they
+    load vectors of rows)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _program_args(leaves: List[torch.Tensor], program: Sequence[Step],
+                  imms: Sequence[int]) -> tuple:
+    """The C entry points' first arguments: the leaves' pointers and
+    dtypes, their count and rows, the program's words, immediates and
+    length.  The caller keeps ``leaves`` alive over the launch."""
+    return (_lib.ptrs(leaves), _lib.ints([DTYPES[t.dtype] for t in leaves]),
+            len(leaves), leaves[0].shape[0],
+            _lib.ints([s.code for s in program]),
+            (ctypes.c_longlong * len(imms))(*imms), len(program))
+
+
+@tracing.kernel
+def expr_fold(leaves: Sequence[torch.Tensor], program: Sequence[Step],
+              imms: Sequence[int], foldop: str, fold32: bool) -> torch.Tensor:
+    """int64 [2] on the leaves' device: the fold (``foldop``, one of
+    FOLD_OPS) of the payload over the rows whose mask is nonzero (the
+    identity where there is none: 0, the int64 maximum for min, its minimum
+    for max), and their count.  ``leaves``: 1-D columns of one length in
+    DTYPES; ``imms``: one int64 immediate per step (0 where the step takes
+    none); ``fold32``: the payload is narrowed to int32."""
+    global launches
+    leaves = _columns(leaves)
     if len(imms) != len(program) or foldop not in FOLD_OPS:
         raise ValueError("one immediate a step, and a fold op of FOLD_OPS")
-    if dev.type == "cpu":
+    if leaves[0].device.type == "cpu":
         return expr_fold_plain(leaves, program, imms, foldop, fold32)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-
-    def ready(t):  # the kernel loads 16-byte-aligned vectors of rows
-        t = t.contiguous()
-        return t.clone() if t.data_ptr() % 16 else t
-
-    leaves = [ready(t) for t in leaves]
-    out = torch.empty(3, dtype=torch.int64, device=dev)
-    imm = (ctypes.c_longlong * len(imms))(*imms)
-    rc = _lib.call("m2v_expr_fold", _lib.ptrs(leaves),
-                   _lib.ints([DTYPES[t.dtype] for t in leaves]), len(leaves),
-                   n, _lib.ints([s.code for s in program]), imm,
-                   len(program), FOLD_OPS.index(foldop), int(fold32),
-                   out.data_ptr(), _lib.stream(leaves[0]))
+    leaves = [_ready(t) for t in leaves]
+    out = torch.empty(3, dtype=torch.int64, device=leaves[0].device)
+    rc = _lib.call("m2v_expr_fold", *_program_args(leaves, program, imms),
+                   FOLD_OPS.index(foldop), int(fold32), out.data_ptr(),
+                   _lib.stream(leaves[0]))
     _lib.check(rc, "expr_fold")
     launches += 1
     return out[:2]
+
+
+@tracing.kernel
+def group_ids(leaves: Sequence[torch.Tensor], program: Sequence[Step],
+              imms: Sequence[int], rmin: int, rcount: int) -> torch.Tensor:
+    """int32 [n] on the leaves' device: for each row, where the program's
+    mask is nonzero, its key less ``rmin`` clamped into [0, rcount - 1]
+    (computed in int64), else -1.  ``leaves``, ``program`` and ``imms`` as
+    ``expr_fold`` takes them; the program leaves the mask, then the key."""
+    global group_launches
+    leaves = _columns(leaves)
+    if len(imms) != len(program) or not 1 <= rcount <= 2**31:
+        raise ValueError("one immediate a step, and 1 to 2^31 pivots")
+    if leaves[0].device.type == "cpu":
+        return group_ids_plain(leaves, program, imms, rmin, rcount)
+    leaves = [_ready(t) for t in leaves]
+    out = torch.empty(leaves[0].shape[0], dtype=torch.int32,
+                      device=leaves[0].device)
+    rc = _lib.call("m2v_group_ids", *_program_args(leaves, program, imms),
+                   rmin, rcount, out.data_ptr(), _lib.stream(leaves[0]))
+    _lib.check(rc, "group_ids")
+    group_launches += 1
+    return out

@@ -25,10 +25,12 @@ lookup table over the code domain, built once per compiled query),
 ``CrossProduct``, and ``JoinIndex`` with all seven sides (sort-merge, or
 the dense-domain join for a small build side).  A sum, min or max over a
 constant group key whose mask and payload are row expressions takes one
-pass over their leaf columns (``exprfold.py``).  On the GPU, compaction,
-the gathers, the monotone scatter, the fused aggregate (with
-MPLAN2VDL_MXU_AGG=1 its sums on the tensor cores) and that one-pass fold
-run as hand-written CUDA kernels (``kernels/``); the sorts and the other
+pass over their leaf columns (``exprfold.py``), and so do a fused family's
+group ids where its key is a ``Partition`` against dense pivots.  On the
+GPU, compaction, the gathers, the monotone scatter, the fused aggregate
+(with MPLAN2VDL_MXU_AGG=1 its sums on the tensor cores), that one-pass fold
+and those group ids run as hand-written CUDA kernels (``kernels/``); the
+sorts and the other
 scatters are torch ops, as the JAX engine computes them outside its
 kernels too.  A node of an
 unknown kind raises ``NotImplementedError`` naming it.
@@ -55,14 +57,14 @@ from .columnstore import ColumnStore
 from . import mergesearch, scan
 from .kernels import segred
 from .kernels.compact import compact_positions
-from .kernels.exprfold import DTYPES as EXPR_DTYPES, expr_fold
+from .kernels.exprfold import DTYPES as EXPR_DTYPES, expr_fold, group_ids
 from .kernels.multiagg import AggSpec, fused_group_aggregate
 from .kernels.multiagg_mxu import fused_group_aggregate_mxu, mxu_agg_on
 from .kernels.scatter import monotone_scatter
 from .kernels.sorted_gather import SMALL_TABLE, gather_many
 
 if TYPE_CHECKING:
-    from .exprfold import ExprFold
+    from .exprfold import ExprFold, Program
 
 # The fused-aggregate gate: on automatically when any loaded column holds
 # at least this many rows (MPLAN2VDL_FUSED_AGG=1/0 forces it either way).
@@ -357,7 +359,10 @@ class Compiler:
     transfer's reads.  ``consts_scalar`` counts the constants a consumer
     took as a scalar, ``consts_materialized`` those ``_force`` wrote out.
     ``expr_plans`` maps a fold's key to its one-pass program
-    (``exprfold.plan``); ``expr_folds`` counts the folds that took it."""
+    (``exprfold.plan``); ``expr_folds`` counts the folds that took it.
+    ``key_plans`` maps a fused family's index to its group-id program
+    (``exprfold.plan_keys``); ``key_programs`` counts the families whose
+    ids took it."""
 
     def __init__(self, store: ColumnStore, device: torch.device,
                  fold_map: Optional[dict] = None,
@@ -365,7 +370,8 @@ class Compiler:
                  gather_mates: Optional[dict] = None,
                  dense_sibs: Optional[dict] = None,
                  lookups: Optional[dict] = None,
-                 expr_plans: Optional[dict] = None):
+                 expr_plans: Optional[dict] = None,
+                 key_plans: Optional[dict] = None):
         self.store = store
         self.device = device
         self.fold_map = fold_map or {}
@@ -374,10 +380,12 @@ class Compiler:
         self.dense_sibs = dense_sibs or {}
         self.lookups = lookups if lookups is not None else {}
         self.expr_plans = expr_plans or {}
+        self.key_plans = key_plans or {}
         self.host_syncs = 0
         self.consts_scalar = 0
         self.consts_materialized = 0
         self.expr_folds = 0
+        self.key_programs = 0
 
     def _monotone(self, v: V.Vexp) -> bool:
         """Positions/values known non-decreasing: the static rules of
@@ -1120,21 +1128,19 @@ class Compiler:
                                           domain, opname)
         return _dense_tail(agg, counts, dt, L_out)
 
-    def _eval_expr_fold(self, v: V.Vexp, vx: V.Fold,
-                        plan: "ExprFold") -> Optional[Val]:
-        """A planned fold (``exprfold.plan``) in one pass over its leaf
-        columns, where every leaf and constant spans the key's rows
-        (``valid`` a host int equal to the length, as a resident column's
-        is) and the row count is under 2^31; None otherwise, before
-        anything is counted, and ``_eval_fold`` takes its usual path."""
-        g = self.eval(vx.fgroups)
-        n = g.length
-
+    def _program_args(self, plan: "Program", n: int
+                      ) -> Optional[Tuple[List[torch.Tensor], List[int]]]:
+        """The leaf columns and immediates of a one-pass program over ``n``
+        rows, where every leaf and constant spans them (``valid`` a host int
+        equal to the length, as a resident column's is), each leaf has a
+        buffer of a dtype the kernel reads, each constant fits its dtype and
+        ``n`` is under 2^31; None otherwise, before any constant is
+        counted."""
         def whole(val: Val) -> bool:
             return (isinstance(val.valid, int) and val.valid == n
                     and val.length == n)
 
-        if not (0 < n < 2**31 and whole(g) and _const(g) is not None):
+        if not 0 < n < 2**31:
             return None
         leaves = [self.eval(x) for x in plan.leaves]
         if not all(whole(x) and x.data is not None
@@ -1148,16 +1154,33 @@ class Compiler:
                 if (k is None or not whole(val)
                         or not info.min <= k <= info.max):
                     return None
-        domain = vx.fgroups.info.bounds[1] + 1
-        key = min(max(self._take(g), 0), domain - 1)
         imms = []
         for c, imm, shift in zip(plan.consts, plan.imms, plan.shifts):
             if c is not None:
                 imm = self._take(self.eval(c))
             # a shift by 63 or more moves as far as one by 63
             imms.append(max(-63, min(imm, 63)) if shift else imm)
-        res = expr_fold([x.data for x in leaves], plan.program, imms,
-                        plan.foldop, plan.fold32)
+        return [x.data for x in leaves], imms
+
+    def _eval_expr_fold(self, v: V.Vexp, vx: V.Fold,
+                        plan: "ExprFold") -> Optional[Val]:
+        """A planned fold (``exprfold.plan``) in one pass over its leaf
+        columns, where the key is a constant that spans its rows and
+        ``_program_args`` takes the program over them; None otherwise,
+        before anything is counted, and ``_eval_fold`` takes its usual
+        path."""
+        g = self.eval(vx.fgroups)
+        n = g.length
+        if not (isinstance(g.valid, int) and g.valid == n
+                and _const(g) is not None):
+            return None
+        args = self._program_args(plan, n)
+        if args is None:
+            return None
+        leaves, imms = args
+        domain = vx.fgroups.info.bounds[1] + 1
+        key = min(max(self._take(g), 0), domain - 1)
+        res = expr_fold(leaves, plan.program, imms, plan.foldop, plan.fold32)
         self.expr_folds += 1
         tab = res.new_zeros((2, domain))
         tab[:, key] = res
@@ -1267,15 +1290,10 @@ class Compiler:
         fam = self.families[fam_idx]
         hit = self.fused_cache.get(fam_idx)
         if hit is None:
-            g = self._force(self.eval(fam.fgroups))
-            n = g.length
-            valid = _valid_mask(n, g.valid, self.device)
-            if fam.fmask is not None:
-                m = self._force(self.eval(fam.fmask))
-                valid = _and(valid, m.data[:n] != 0)
-            gid = g.data[:n].to(torch.int32)
-            if valid is not None:
-                gid = torch.where(valid, gid, -1)
+            gid = self._fused_ids(v, fam_idx)
+            if gid is None:
+                gid = self._node_ids(fam)
+            n = gid.shape[0]
             cols = []
             for nm in fam.load_names:
                 arr = self.tables[nm]
@@ -1308,6 +1326,35 @@ class Compiler:
         vals = hit["out"][sel.long(), agg_idx]
         data = _mask_tail(vals.to(dt), hit["ngroups"], L_out)
         return Val(data=data, valid=hit["ngroups"], length=L_out)
+
+    def _node_ids(self, fam) -> torch.Tensor:
+        """The int32 group ids of fused family ``fam`` from its key and
+        mask nodes, evaluated one by one: -1 where the mask or the key's
+        validity drops a row."""
+        g = self._force(self.eval(fam.fgroups))
+        n = g.length
+        valid = _valid_mask(n, g.valid, self.device)
+        if fam.fmask is not None:
+            m = self._force(self.eval(fam.fmask))
+            valid = _and(valid, m.data[:n] != 0)
+        gid = g.data[:n].to(torch.int32)
+        return gid if valid is None else torch.where(valid, gid, -1)
+
+    def _fused_ids(self, v: V.Vexp, fam_idx: int) -> Optional[torch.Tensor]:
+        """The int32 group ids of fused family ``fam_idx`` (-1 where its
+        mask drops a row) in one pass over its planned program's leaves
+        (``exprfold.plan_keys``), where ``_program_args`` takes it over the
+        first leaf's rows; None otherwise, and ``_eval_fused`` evaluates
+        the key and mask nodes.  ``v`` is the fold being evaluated."""
+        plan = self.key_plans.get(fam_idx)
+        if plan is None:
+            return None
+        args = self._program_args(plan, self.eval(plan.leaves[0]).length)
+        if args is None:
+            return None
+        leaves, imms = args
+        self.key_programs += 1
+        return group_ids(leaves, plan.program, imms, plan.rmin, plan.rcount)
 
     # ------------------------------------------------------------ partitions
     def _eval_partition(self, v: V.Vexp, vx: V.Partition) -> Val:
@@ -1523,6 +1570,12 @@ class TracedCompiler(Compiler):
             self.expr_reads[v.skey] = plan.leaves
         return out
 
+    def _fused_ids(self, v: V.Vexp, fam_idx: int) -> Optional[torch.Tensor]:
+        out = super()._fused_ids(v, fam_idx)
+        if out is not None:
+            self.expr_reads[v.skey] = self.key_plans[fam_idx].leaves
+        return out
+
     def fetch(self, vals: List[Val]) -> List[np.ndarray]:
         with tracing.span("m2v_result"):
             return super().fetch(vals)
@@ -1546,9 +1599,10 @@ class CompiledQuery:
             from .fuse import plan_fusions
 
             self.fold_map, self.families = plan_fusions(vexps)
-        from .exprfold import plan
+        from .exprfold import plan, plan_keys
 
         self.expr_plans = plan(vexps, self.fold_map)
+        self.key_plans = plan_keys(self.families)
         self.gather_mates = gather_mate_map(vexps)
         sibs: Dict[int, list] = {}
         for lk, rk in join_key_pairs(vexps):
@@ -1564,10 +1618,11 @@ class CompiledQuery:
         self.host_syncs = 0
         # after a call, the constants its consumers took as scalars and
         # those written out (``Compiler.consts_scalar`` and
-        # ``consts_materialized``), and the folds computed in one pass
-        # (``Compiler.expr_folds``)
+        # ``consts_materialized``), the folds computed in one pass
+        # (``Compiler.expr_folds``) and the fused families whose group ids
+        # were (``Compiler.key_programs``)
         self.consts_scalar = self.consts_materialized = 0
-        self.expr_folds = 0
+        self.expr_folds = self.key_programs = 0
 
     def device_args(self, upload=None) -> Tuple[torch.Tensor, ...]:
         """The loaded columns on the device, copied there on first use: by
@@ -1587,13 +1642,14 @@ class CompiledQuery:
     def _run(self, cls) -> Tuple[List[Val], Compiler]:
         c = cls(self.store, self.device, self.fold_map, self.families,
                 self.gather_mates, self.dense_sibs, self.lookups,
-                self.expr_plans)
+                self.expr_plans, self.key_plans)
         args = self.device_args(c._upload)
         out = c.trace(self.vexps, dict(zip(self.loads, args)))
         self.join_log, self.host_syncs = c.join_log, c.host_syncs
         self.consts_scalar = c.consts_scalar
         self.consts_materialized = c.consts_materialized
         self.expr_folds = c.expr_folds
+        self.key_programs = c.key_programs
         return out, c
 
     def cost_report(self, hbm_gbps: Optional[float] = None,

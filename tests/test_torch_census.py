@@ -101,6 +101,8 @@ def _count_launches(monkeypatch):
         lower.fused_group_aggregate_mxu, multiagg_mxu, "launches"))
     monkeypatch.setattr(lower, "expr_fold", counted(
         lower.expr_fold, exprfold, "launches"))
+    monkeypatch.setattr(lower, "group_ids", counted(
+        lower.group_ids, exprfold, "group_launches"))
     monkeypatch.setattr(lower, "monotone_scatter", counted(
         lower.monotone_scatter, scatter, "launches"))
     for fn in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
@@ -112,7 +114,7 @@ def _smoke(sf):
     s = chip_smoke.Smoke.__new__(chip_smoke.Smoke)
     s.torch, s.dev, s.smi = torch, torch.device("cpu"), "cpu"
     s.args = types.SimpleNamespace(sf=sf, seed=1, profile=None)
-    s.records = {"queries": []}
+    s.records = {"queries": [], "kernel_checks": []}
     return s
 
 

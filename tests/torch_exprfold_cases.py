@@ -1,8 +1,9 @@
-"""Random one-group folds for the expression-fold kernel, shared by
-tests/test_torch_exprfold.py (on the CPU, the port against its node path
-and the JAX engine) and chip_smoke.py (on the card, the kernel against its
-plain version).  Imports neither JAX nor the JAX package: a tree is drawn
-once as a spec of nested tuples and built in either package's VIR.
+"""Random one-group folds for the expression-fold kernel, and random group
+keys for the group-id kernel, shared by tests/test_torch_exprfold.py and
+tests/test_torch_groupids.py (on the CPU, the port against its node path
+and the JAX engine) and chip_smoke.py (on the card, the kernels against
+their plain versions).  Imports neither JAX nor the JAX package: a tree is
+drawn once as a spec of nested tuples and built in either package's VIR.
 
 A spec is ``("col", name)`` (a leaf column of LEAVES), ``("k", value)`` (a
 constant), ``("div",)`` (``a32 / a8``: a node outside the program's ops,
@@ -25,6 +26,27 @@ OPS = ["Add", "Sub", "Mul", "Min", "Max", "Gt", "Lt", "Geq", "Leq", "Eq",
 KS = [I32_MIN, I32_MAX, -1, -7, 0, 3, 100, -(2**40)]
 SHIFTS = [-70, -40, -3, 0, 3, 31, 40, 70]
 FOLDS = ["sum", "min", "max"]
+# a group key's Partition pivots (rmin, rcount), in turn
+PIVOTS = [(0, 8), (-3, 16), (5, 1), (-(2**40), 2), (2**33, 16),
+          (I32_MIN, 4)]
+# (key, rmin, rcount) whose ids spread over the pivots, before the random
+# keys: Q1's shape, a narrow leaf, a masked leaf, a shifted bool, and a
+# 32-bit key three stack slots deep (over a mask: the kernel for deeper
+# 32-bit programs, which no random key reaches)
+FIXED_KEYS = [
+    (("BitOr", ("BitShift", ("Max", ("col", "a8"), ("k", 0)), ("k", -1)),
+      ("col", "b")), 0, 8),
+    (("col", "a8"), -3, 16),
+    (("BitAnd", ("col", "a16"), ("k", 7)), 2, 4),
+    (("Add", ("BitShift", ("col", "b"), ("k", -2)), ("col", "a8")), -1, 8),
+    (("Sub",
+      ("Max", ("Add", ("col", "a8"), ("col", "a16")),
+       ("Sub", ("col", "a16"), ("col", "a8"))),
+      ("Min", ("Add", ("col", "a16"), ("col", "b")),
+       ("Sub", ("col", "a8"), ("col", "b")))), -8, 16)]
+# the fixed keys' mask: 32 bits, so that their programs are
+FIXED_MASK = ("Neq", ("col", "a8"), ("k", 3))
+KEY_CASES = 36
 
 
 def add_leaves(st, seed: int) -> None:
@@ -64,6 +86,21 @@ def draw(rng, depth: int):
     return (op, a, b)
 
 
+def key_case(i: int):
+    """Group-id case ``i``: (mask spec or None, key spec, rmin, rcount),
+    FIXED_KEYS under FIXED_MASK first, then random keys (never a
+    constant) and masks drawn from ``i`` over PIVOTS in turn; every sixth
+    case has no mask."""
+    rng = np.random.default_rng(1000 + i)
+    if i < len(FIXED_KEYS):
+        return (FIXED_MASK,) + FIXED_KEYS[i]
+    mask = None if i % 6 == 5 else draw(rng, 2)
+    key = draw(rng, 3)
+    while is_constant(key):
+        key = draw(rng, 3)
+    return (mask, key) + PIVOTS[i % len(PIVOTS)]
+
+
 def is_constant(spec) -> bool:
     return spec[0] == "k" or (spec[0] in OPS and is_constant(spec[1])
                               and is_constant(spec[2]))
@@ -100,6 +137,14 @@ class Builder:
             return self.V.binop(self.M.DIV, self.col("a32"), self.col("a8"))
         return self.binop(spec[0], self.build(spec[1]), self.build(spec[2]))
 
+    def partition(self, key, rmin: int, rcount: int):
+        """``Partition`` of the built key against the pivots rmin, rmin + 1,
+        ... (``rcount`` of them), the engine's dense group ids."""
+        V = self.V
+        return V.complete(V.Partition(
+            pivots=V.complete(V.RangeC(rmin=rmin, rstep=1, rcount=rcount)),
+            pdata=self.build(key)))
+
     def fold(self, op: str, data, mask=None):
         """A fold (``op`` of FOLDS) over a constant key, the specs built."""
         V = self.V
@@ -125,6 +170,22 @@ def card_plans(cfg, V, M, plan_fold, seed: int = 1, count: int = 30):
                                      for c in p.consts if c is not None):
                 break
         out.append((f"random{i}-{op}", p))
+    return out
+
+
+def key_plans(cfg, V, M, plan_group_ids):
+    """(name, group-id plan) of each of the KEY_CASES cases that plans
+    with constants that are ranges (``immediates`` reads their values from
+    the plan)."""
+    out = []
+    for i in range(KEY_CASES):
+        mask, key, rmin, rcount = key_case(i)
+        b = Builder(V, M, cfg, wrap=i % 2 == 1)
+        p = plan_group_ids(b.partition(key, rmin, rcount),
+                           None if mask is None else b.build(mask))
+        if p is not None and all(isinstance(c.vx, V.RangeV)
+                                 for c in p.consts if c is not None):
+            out.append((f"key{i}", p))
     return out
 
 
